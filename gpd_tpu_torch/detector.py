@@ -1,0 +1,508 @@
+"""Grasp detection pipeline (port of gpd_tpu/detector.py).
+
+The reference's ``GraspDetector`` (src/gpd/grasp_detector.cpp): host-side
+preprocessing with one compaction, then the detection core (local frames,
+hand search, filters, valid-first compaction, descriptors, CNN scores) and
+selection, all on one device. PyTorch runs eagerly, so gpd_tpu's fused
+programs become plain functions, its ``lax.cond``/``while_loop`` skips of
+dead blocks become Python loops over live blocks whose trip counts come from
+one host read each.
+
+Stage times are reported in the reference's format
+(grasp_detector.cpp:313-320).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gpd_tpu_torch import resolve_device
+from gpd_tpu_torch import select as sel
+from gpd_tpu_torch.config import DetectorConfig, load_config
+from gpd_tpu_torch.core.types import CloudArrays, Grasps, _next_size
+from gpd_tpu_torch.net import lenet
+from gpd_tpu_torch.ops import candidates as cand
+from gpd_tpu_torch.ops import draws
+from gpd_tpu_torch.ops import images as img
+from gpd_tpu_torch.ops import neighbors as nbr
+from gpd_tpu_torch.ops import preprocess as pp
+from gpd_tpu_torch.ops.frames import estimate_frames
+from gpd_tpu_torch.ops.normals import (estimate_normals, refine_normals,
+                                       reverse_normals_cloud)
+
+# Sample-block size of the active-sample-compacted descriptor inputs: big
+# sample sets have valid hands at a fraction of their samples, so samples
+# are reordered active-first and whole inactive blocks are skipped.
+_SAMPLE_BLOCK = 512
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _compact_hands(grasps: Grasps, cap: int) -> Grasps:
+    """Valid hands to the front (stable), ``cap`` slots kept: the
+    reference's createImageList compaction (image_generator.cpp:91-98)."""
+    return grasps.take(torch.argsort(~grasps.valid, stable=True)[:cap])
+
+
+def candidates_stage(cloud: CloudArrays, sample_pos: torch.Tensor,
+                     sample_mask: torch.Tensor, cfg: DetectorConfig) -> Grasps:
+    """Steps 1-2 of detectGrasps: frames -> hand search -> filters
+    (grasp_detector.cpp:192-258)."""
+    frames, fvalid = estimate_frames(
+        sample_pos, sample_mask, cloud.points, cloud.mask, cloud.normals,
+        radius=cfg.nn_radius_frames)
+    grasps = cand.search_hands_with_frames(cloud, sample_pos, frames, fvalid,
+                                           cfg)
+    hg = cfg.hand_geometry
+    grasps = sel.filter_grasps_workspace(
+        grasps, cfg.workspace_grasps, cfg.min_aperture, cfg.max_aperture,
+        hg.outer_diameter, hg.depth)
+    if cfg.filter_approach_direction:
+        grasps = sel.filter_grasps_direction(grasps, cfg.direction,
+                                             cfg.thresh_rad)
+    return grasps
+
+
+def _image_point_mask(cloud: CloudArrays, cfg: DetectorConfig) -> torch.Tensor:
+    """Cloud-level point mask for descriptor extraction."""
+    if cfg.remove_plane_before_image_calculation:
+        raise NotImplementedError(
+            "remove_plane_before_image_calculation (RANSAC) is not ported yet")
+    return cloud.mask
+
+
+def _shadow_shape(cloud: CloudArrays, cfg: DetectorConfig):
+    """(sources k, points per source n_sp, voxel cap) of compute_shadows:
+    up to shadow_source_cap of each sample's image neighborhood cast
+    shadows."""
+    k_img = min(cfg.image_neighbors_cap, cloud.capacity)
+    k = min(cfg.shadow_source_cap, k_img)
+    n_sp = img.num_shadow_points(cfg.image_geometry)
+    return k, n_sp, min(cfg.shadow_voxel_cap, k * n_sp)
+
+
+def shadow_noise(generator: torch.Generator, cloud: CloudArrays,
+                 num_samples: int, cfg: DetectorConfig):
+    """The shadow draws of every sample, in original sample order (None
+    without a shadow channel)."""
+    if cfg.image_geometry.num_channels != 15:
+        return None
+    k, n_sp, v_cap = _shadow_shape(cloud, cfg)
+    return draws.shadow_noise(generator, num_samples, cloud.num_cameras, k,
+                              n_sp, v_cap, cloud.device)
+
+
+def _per_sample_inputs(cloud: CloudArrays, img_mask: torch.Tensor,
+                       sample_pos: torch.Tensor, sample_mask: torch.Tensor,
+                       noise, cfg: DetectorConfig, sample_uid=None):
+    """Per-sample descriptor inputs for one block of samples: image-radius
+    neighborhoods + shadow point sets (image_generator.cpp:17-70).
+
+    ``sample_uid`` (S,) holds each row's ORIGINAL sample index; the shadow
+    draws are taken by it, so results do not depend on how the sample axis
+    is permuted or blocked."""
+    # When the cap covers the cloud, identity neighborhoods (whole cloud +
+    # in-radius mask, no gather, no sort); otherwise the nearest K, which
+    # cover the (much smaller) image volume.
+    k_img = min(cfg.image_neighbors_cap, cloud.capacity)
+    if k_img >= cloud.capacity:
+        nn_valid, nn_d2 = nbr.radius_mask(sample_pos, sample_mask,
+                                          cloud.points, img_mask,
+                                          cfg.image_radius)
+        nn_idx = None
+    else:
+        nn_idx, nn_valid = nbr.radius_neighbors(
+            sample_pos, sample_mask, cloud.points, img_mask,
+            radius=cfg.image_radius, k=k_img)
+        nn_d2 = None
+
+    if cfg.image_geometry.num_channels != 15:
+        return nn_idx, nn_valid, None, None
+    # Shadow sources: up to shadow_source_cap of the nearest neighborhood
+    # points (occupied-voxel sets saturate quickly).
+    width = nn_valid.shape[1]
+    sc = min(cfg.shadow_source_cap, width)
+    if sc < width:
+        if nn_d2 is None:
+            nn_d2 = nbr.sum_sq3(sample_pos[:, None, :] - cloud.points[nn_idx])
+        negd, src_pos = nbr.select_max_k(
+            torch.where(nn_valid, -nn_d2, -torch.inf), sc)
+        src_idx = (src_pos if nn_idx is None
+                   else torch.gather(nn_idx, 1, src_pos))
+        src_valid = negd > -torch.inf
+    elif nn_idx is None:
+        src_idx = torch.arange(width, device=nn_valid.device).expand(
+            nn_valid.shape)
+        src_valid = nn_valid
+    else:
+        src_idx, src_valid = nn_idx, nn_valid
+    uid = (torch.arange(sample_pos.shape[0], device=sample_pos.device)
+           if sample_uid is None else sample_uid)
+    ig = cfg.image_geometry
+    shadow_pts, shadow_valid = img.compute_shadows(
+        cloud.points[src_idx], src_valid, cloud.cam_source[src_idx],
+        cloud.view_points, img.shadow_length_of(ig),
+        img.num_shadow_points(ig), cfg.shadow_voxel_cap,
+        noise[0][uid], noise[1][uid])
+    return nn_idx, nn_valid, shadow_pts, shadow_valid
+
+
+def image_inputs_stage(cloud: CloudArrays, sample_pos: torch.Tensor,
+                       sample_mask: torch.Tensor, noise, cfg: DetectorConfig):
+    """Shared per-sample descriptor inputs (image_generator.cpp:17-70).
+    Returns (nn_idx | None for identity neighborhoods, nn_valid,
+    shadow_pts, shadow_valid)."""
+    return _per_sample_inputs(cloud, _image_point_mask(cloud, cfg),
+                              sample_pos, sample_mask, noise, cfg)
+
+
+def _image_inputs_blocked(cloud: CloudArrays, sample_pos: torch.Tensor,
+                          sample_mask: torch.Tensor, sample_uid: torch.Tensor,
+                          n_active: int, noise, cfg: DetectorConfig,
+                          block: int):
+    """_per_sample_inputs over sample blocks, for the blocks before the
+    active count (callers order samples active-first); later rows are
+    empty. Returns the same tuple as image_inputs_stage."""
+    img_mask = _image_point_mask(cloud, cfg)
+    S = sample_pos.shape[0]
+    parts = [_per_sample_inputs(cloud, img_mask, sample_pos[b:b + block],
+                                sample_mask[b:b + block], noise, cfg,
+                                sample_uid=sample_uid[b:b + block])
+             for b in range(0, n_active, block)]
+    live = min(S, -(-n_active // block) * block)
+
+    def rows(i, empty_shape, dtype):
+        dead = torch.zeros((S - live,) + empty_shape, dtype=dtype,
+                           device=sample_pos.device)
+        return torch.cat([p[i] for p in parts] + [dead])
+
+    k_img = min(cfg.image_neighbors_cap, cloud.capacity)
+    identity = k_img >= cloud.capacity
+    nn_idx = None if identity else rows(0, (k_img,), torch.int64)
+    nn_valid = rows(1, (k_img,), torch.bool)
+    if cfg.image_geometry.num_channels != 15:
+        return nn_idx, nn_valid, None, None
+    v_cap = _shadow_shape(cloud, cfg)[2]
+    return (nn_idx, nn_valid, rows(2, (v_cap, 3), torch.float32),
+            rows(3, (v_cap,), torch.bool))
+
+
+def _sample_activity(grasps: Grasps, num_samples: int) -> torch.Tensor:
+    """(S,) bool: sample has >= 1 valid candidate. The batch is the hand
+    search's sample-major layout, so this is a reshape."""
+    return torch.any(grasps.valid.reshape(num_samples, -1), dim=1)
+
+
+def _descriptor_inputs(cloud: CloudArrays, grasps: Grasps,
+                       sample_pos: torch.Tensor, sample_mask: torch.Tensor,
+                       noise, cfg: DetectorConfig):
+    """Descriptor inputs, with active-sample compaction for sample sets
+    larger than one block. Returns (nn_idx, nn_valid, shadow_pts,
+    shadow_valid, sid_map); sid_map (or None) maps grasp sample ids to rows
+    of the reordered per-sample tensors."""
+    S = sample_pos.shape[0]
+    if S <= _SAMPLE_BLOCK:
+        return image_inputs_stage(cloud, sample_pos, sample_mask, noise,
+                                  cfg) + (None,)
+    active = _sample_activity(grasps, S) & sample_mask
+    sorder = torch.argsort(~active, stable=True)
+    sid_map = torch.argsort(sorder)            # old sample id -> new row
+    out = _image_inputs_blocked(
+        cloud, sample_pos[sorder], sample_mask[sorder] & active[sorder],
+        sorder, int(active.sum()), noise, cfg, _SAMPLE_BLOCK)
+    return out + (sid_map,)
+
+
+def _images_for(cloud: CloudArrays, g: Grasps, nn_idx, nn_valid,
+                shadow_pts, shadow_valid, cfg: DetectorConfig,
+                sid_map=None) -> torch.Tensor:
+    """Grasp images for a compacted batch of hands (createImageList,
+    image_generator.cpp:72-99)."""
+    sid = g.sample_id if sid_map is None else sid_map[g.sample_id]
+    h_nvalid = nn_valid[sid] & g.valid[:, None]
+    if nn_idx is None:
+        # Shared neighborhood: the (N, 3) cloud arrays go in unexpanded.
+        h_pts, h_nrm = cloud.points, cloud.normals
+    else:
+        h_idx = nn_idx[sid]
+        h_pts, h_nrm = cloud.points[h_idx], cloud.normals[h_idx]
+    return img.make_images(
+        h_pts, h_nrm, h_nvalid, g.orientation, g.sample, g.bottom,
+        g.center, g.valid, cfg.image_geometry,
+        shadow_pts=None if shadow_pts is None else shadow_pts[sid],
+        shadow_valid=None if shadow_valid is None else shadow_valid[sid])
+
+
+def _order_valid_first(grasps: Grasps, padded: int) -> Grasps:
+    """Valid-first (stable) order, padded to ``padded`` slots with invalid
+    entries so fixed-size chunks cover every candidate."""
+    total = grasps.capacity
+    order = torch.argsort(~grasps.valid, stable=True)
+    order = torch.nn.functional.pad(order, (0, padded - total))
+    g_all = grasps.take(order)
+    if padded > total:
+        g_all = dataclasses.replace(g_all, valid=g_all.valid & (
+            torch.arange(padded, device=order.device) < total))
+    return g_all
+
+
+class StageClock:
+    """Host-clock time per stage of one request. With a ``device``, each
+    ``mark`` first waits for it, so a stage's time covers the device work
+    it queued; a mark adds to its stage's total, so chunked stages sum over
+    their chunks. Without one, marks do nothing and nothing waits."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        self.device = device
+        self.times = {}
+        self._last = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self.device is None:
+            return
+        _sync(self.device)
+        now = time.perf_counter()
+        self.times[stage] = self.times.get(stage, 0.0) + now - self._last
+        self._last = now
+
+
+def score_candidates(cloud: CloudArrays, grasps: Grasps,
+                     sample_pos: torch.Tensor, sample_mask: torch.Tensor,
+                     net: lenet.LeNet, generator: torch.Generator,
+                     cfg: DetectorConfig, image_cap: int,
+                     clock: Optional[StageClock] = None) -> Grasps:
+    """Images + CNN scores for a candidate batch in the hand search's
+    sample-major layout (the reference's pruneGraspCandidates shape,
+    grasp_detector.cpp:529-552): descriptor inputs, valid-first order, then
+    images and scores in chunks of ``image_cap`` hands over the live chunks
+    only (one host read of the valid count). ``sample_pos`` must be the one
+    the candidates came from. Returns the scored Grasps in valid-first
+    order; images are never kept.
+    """
+    clock = clock or StageClock()
+    noise = shadow_noise(generator, cloud, sample_pos.shape[0], cfg)
+    nn_idx, nn_valid, shadow_pts, shadow_valid, sid_map = _descriptor_inputs(
+        cloud, grasps, sample_pos, sample_mask, noise, cfg)
+    clock.mark("descriptors")
+
+    n_chunks = max(1, -(-grasps.capacity // image_cap))
+    g_all = _order_valid_first(grasps, n_chunks * image_cap)
+    n_live = -(-int(grasps.valid.sum()) // image_cap)
+    scores = torch.full((n_chunks * image_cap,), -torch.inf,
+                        device=grasps.valid.device)
+    for i in range(n_live):
+        chunk = slice(i * image_cap, (i + 1) * image_cap)
+        images = _images_for(cloud, g_all.take(chunk), nn_idx, nn_valid,
+                             shadow_pts, shadow_valid, cfg, sid_map)
+        clock.mark("images")
+        scores[chunk] = lenet.score(net, images)
+        clock.mark("classify")
+    # Classification scores attach to the ordered batch
+    # (grasp_detector.cpp:267-273).
+    return dataclasses.replace(
+        g_all, score=torch.where(g_all.valid, scores, -torch.inf))
+
+
+def detect_core(cloud: CloudArrays, sample_pos: torch.Tensor,
+                sample_mask: torch.Tensor, net: lenet.LeNet,
+                generator: torch.Generator, cfg: DetectorConfig,
+                image_cap: int, clock: Optional[StageClock] = None) -> Grasps:
+    """frames -> candidates -> filters -> images -> CNN scores
+    (grasp_detector.cpp:192-273, steps 1-4). Returns the scored Grasps in
+    valid-first order."""
+    clock = clock or StageClock()
+    grasps = candidates_stage(cloud, sample_pos, sample_mask, cfg)
+    clock.mark("candidates")
+    return score_candidates(cloud, grasps, sample_pos, sample_mask, net,
+                            generator, cfg, image_cap, clock)
+
+
+def select_and_cluster(grasps: Grasps, cfg: DetectorConfig) -> Grasps:
+    """Steps 5-7 of detectGrasps (grasp_detector.cpp:275-311): top-k
+    selection, optional clustering with the reference's <=3-clusters
+    fallback (append the selected hands), final score-descending sort."""
+    k = min(grasps.capacity, _next_size(cfg.num_selected, 64))
+    g, _ = sel.select_top_k(grasps, cfg.num_selected, out_cap=k)
+    if cfg.min_inliers <= 0:
+        return g          # select_top_k already sorted it
+    clustered = sel.cluster_grasps(g, cfg.min_inliers)
+    keep_originals = clustered.valid.sum() <= 3
+    merged = Grasps(**{f.name: torch.cat([getattr(clustered, f.name),
+                                          getattr(g, f.name)])
+                       for f in dataclasses.fields(Grasps)})
+    merged = dataclasses.replace(merged, valid=torch.cat(
+        [clustered.valid, g.valid & keep_originals]))
+    return sel.sort_by_score(merged)
+
+
+class GraspDetector:
+    """End-to-end detector (reference: include/gpd/grasp_detector.h).
+
+    ``params`` is a gpd_tpu parameter dict of numpy arrays (see
+    ``lenet.params_from_numpy``); by default the configured .npz weights,
+    else the packaged checkpoint. ``device`` defaults to CUDA and raises
+    without it."""
+
+    def __init__(self, config, params=None, device=None):
+        if isinstance(config, str):
+            config = load_config(config)
+        self.cfg: DetectorConfig = config
+        self.device = resolve_device(device)
+        if params is None:
+            path = self.cfg.weights_file
+            if not (path.endswith(".npz") and os.path.exists(path)):
+                default = lenet.default_params_path(
+                    self.cfg.image_geometry.num_channels)
+                if path:
+                    print(f"NOTE: weights_file {path!r} is not an .npz "
+                          f"checkpoint; using packaged checkpoint {default}.")
+                path = default
+            params = lenet.load_params_npz(path)
+        self.net = lenet.params_from_numpy(params, self.device)
+        self.last_runtimes = {}
+        self.last_counts = {}
+
+    def _generator(self, generator: Optional[torch.Generator]):
+        if generator is not None:
+            return generator
+        return torch.Generator(device=self.device).manual_seed(0)
+
+    def preprocess_cloud(self, points: np.ndarray,
+                         view_points: Optional[np.ndarray] = None,
+                         cam_source: Optional[np.ndarray] = None,
+                         normals: Optional[np.ndarray] = None) -> CloudArrays:
+        """removeNans -> filterWorkspace -> voxelize -> normals(+reverse)
+        -> [refine] (candidates_generator.cpp:14-37). Returns a compacted
+        CloudArrays on the detector's device."""
+        cfg = self.cfg
+        if cfg.remove_outliers:
+            raise NotImplementedError("remove_outliers is not ported yet")
+        points = np.asarray(points, np.float32).reshape(-1, 3)
+        finite = np.isfinite(points).all(axis=1)
+        points = points[finite]
+        if normals is not None:
+            normals = np.asarray(normals, np.float32).reshape(-1, 3)[finite]
+        if cam_source is not None:
+            cam_source = np.asarray(cam_source)[..., finite]
+
+        cloud = CloudArrays.from_numpy(
+            points, view_points=view_points, cam_source=cam_source,
+            normals=normals, device=self.device)
+        cloud = pp.filter_workspace(cloud, tuple(cfg.workspace))
+        if cfg.voxelize:
+            cloud = pp.voxelize(cloud, cfg.voxel_size)
+        cloud = cloud.compact_host()
+        if normals is None or cfg.voxelize:
+            cloud = estimate_normals(cloud, cfg.normals_radius)
+        cloud = reverse_normals_cloud(cloud)
+        if cfg.refine_normals_k > 0:
+            cloud = dataclasses.replace(cloud, normals=refine_normals(
+                cloud.points, cloud.normals, cloud.mask, k=cfg.refine_normals_k))
+        if cfg.centered_at_origin:
+            cloud = dataclasses.replace(cloud, normals=-cloud.normals)
+        return cloud
+
+    def sample_cloud(self, cloud: CloudArrays,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """subsample(num_samples) -> (positions, mask)."""
+        if self.cfg.sample_above_plane:
+            raise NotImplementedError("sample_above_plane is not ported yet")
+        idx, valid = pp.subsample_uniform(self._generator(generator),
+                                          cloud.mask, self.cfg.num_samples)
+        return torch.where(valid[:, None], cloud.points[idx], 1e6), valid
+
+    def image_cap(self, num_samples: int) -> int:
+        """Image/score chunk size: small enough that the all-invalid tail
+        chunks are skipped."""
+        cfg = self.cfg
+        total = num_samples * cfg.num_orientations * len(cfg.hand_axes)
+        return min(_next_size(total, 256), 512)
+
+    def effective_config(self, cloud: CloudArrays) -> DetectorConfig:
+        """Clamp the neighbor caps to the cloud's padded capacity: the hand
+        search runs uncapped on identity neighborhoods up to
+        search_identity_max, and image neighborhoods cover the cloud when it
+        is close to the cap."""
+        n = cloud.capacity
+        changes = {}
+        if self.cfg.search_neighbors_cap > n:
+            changes["search_neighbors_cap"] = n
+        elif self.cfg.search_neighbors_cap < n <= self.cfg.search_identity_max:
+            changes["search_neighbors_cap"] = n
+        if n <= 1.5 * self.cfg.image_neighbors_cap:
+            if self.cfg.image_neighbors_cap != n:
+                changes["image_neighbors_cap"] = n
+        if changes:
+            return dataclasses.replace(self.cfg, **changes)
+        return self.cfg
+
+    def detect(self, cloud: CloudArrays,
+               sample_pos: Optional[torch.Tensor] = None,
+               sample_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               verbose: bool = True, sync_stages: bool = False) -> Grasps:
+        """Full detectGrasps pipeline with stage timing.
+
+        ``last_runtimes`` holds detect (steps 1-4), select and total
+        seconds. ``sync_stages=True`` also waits for the device after every
+        stage and adds each stage's seconds (sample, candidates,
+        descriptors, images, classify), for the reference's per-stage
+        report (grasp_detector.cpp:313-320) at the cost of those waits."""
+        cfg = self.effective_config(cloud)
+        gen = self._generator(generator)
+        t0 = time.perf_counter()
+        clock = StageClock(self.device if sync_stages else None)
+        if sample_pos is None:
+            sample_pos, sample_mask = self.sample_cloud(cloud, gen)
+            clock.mark("sample")
+        cap = self.image_cap(sample_pos.shape[0])
+
+        t_c0 = time.perf_counter()
+        g = detect_core(cloud, sample_pos, sample_mask, self.net, gen, cfg,
+                        cap, clock)
+        n_candidates = int(g.valid.sum())      # also waits for the device
+        t_detect = time.perf_counter() - t_c0
+
+        t_s0 = time.perf_counter()
+        out = select_and_cluster(g, cfg)
+        _sync(self.device)
+        t_select = time.perf_counter() - t_s0
+        t_total = time.perf_counter() - t0
+
+        self.last_runtimes = dict(detect=t_detect, select=t_select,
+                                  total=t_total, **clock.times)
+        valid = out.valid.cpu().numpy()
+        self.last_counts = dict(samples=int(sample_mask.sum()),
+                                candidates=n_candidates,
+                                selected=int(valid.sum()))
+        if verbose:
+            scores = out.score.cpu().numpy()
+            print("======== Selected grasps ========")
+            for i in np.nonzero(valid)[0][:10]:
+                print(f"Grasp {i}: {scores[i]:.4f}")
+            print(f"Selected the {int(valid.sum())} best grasps.")
+            print("======== RUNTIMES ========")
+            st = clock.times
+            if st:
+                print(f" 1. Candidate generation: {st['candidates']:.4f}s")
+                print(f" 2. Descriptors/images: "
+                      f"{st['descriptors'] + st.get('images', 0.0):.4f}s")
+                print(f" 3. Classification: {st.get('classify', 0.0):.4f}s")
+                print(f" 4. Selection/clustering: {t_select:.4f}s")
+            else:
+                print(f" 1. Candidate generation + descriptors + "
+                      f"classification: {t_detect:.4f}s")
+                print(f" 2. Selection/clustering: {t_select:.4f}s")
+            print("==========")
+            print(f" TOTAL: {t_total:.4f}s")
+        return out

@@ -1,0 +1,92 @@
+"""Builds the port's CUDA kernels from ``gpd_tpu_torch/csrc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles with nvcc for Hopper (``sm_90a``) into a
+shared library with a plain C interface, loaded with ``ctypes``. Libraries
+go to ``gpd_tpu_torch/_build/`` (ignored by git) under a name that carries
+a hash of the source and flags, so an edited source rebuilds and an
+unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Dynamic shared memory one block may use on Hopper (232,448 bytes).
+MAX_DYNAMIC_SMEM = 232448
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return path
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named kernel that is not built yet, one nvcc process
+    each, all started together. Returns nvcc's output per name (register
+    and shared-memory use from ``-Xptxas -v``); raises if a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+                           "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(library_path(name))
+        return lib
+
+
+def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:
+    fn = lib.gpd_cuda_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return f"CUDA error {err}: {fn(err).decode()}"

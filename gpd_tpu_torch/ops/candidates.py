@@ -1,0 +1,320 @@
+"""Grasp-candidate search: the geometric core (port of
+gpd_tpu/ops/candidates.py:40-419).
+
+The reference's hot loop (src/gpd/candidate/hand_search.cpp:144-188,
+hand_set.cpp:31-116, finger_hand.cpp, antipodal.cpp:10-96) as masked tensor
+work over the (orientation x sample x neighborhood) grid:
+
+  - evaluateFingers's "back-of-hand collision => abort" is a min-x test,
+  - deepenHand's break-on-first-failure scan collapses to a count of the
+    depths below the first collision (the same depths as the C++ double
+    accumulation loop, ``HandGeometry.deepen_depths``),
+  - the antipodal force-closure test is elementwise math + reductions.
+
+Samples run in blocks whose (M, B, K) working tensors stay under
+``_BLOCK_ELEMS``; blocks that hold no sample with a valid frame are skipped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gpd_tpu_torch.config import DetectorConfig, HandGeometry
+from gpd_tpu_torch.core.types import Grasps
+from gpd_tpu_torch.ops.neighbors import radius_mask, radius_neighbors
+
+_NEG = -1e9
+_POS = 1e9
+
+# Per-sample-block working-set budget for the hand search, in f32 elements
+# of one (M, B, K) tensor (~270 MB).
+_BLOCK_ELEMS = 1 << 26
+
+
+def _ceil128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def finger_spacing(hand: HandGeometry, num_placements: int) -> np.ndarray:
+    """Finger placement offsets (finger_hand.cpp:12-18): 2P values, first P
+    left-finger slab starts, last P right-finger slab starts."""
+    fs_half = np.linspace(0.0, hand.outer_diameter - hand.finger_width,
+                          num_placements)
+    left = fs_half - hand.outer_diameter + hand.finger_width
+    return np.concatenate([left, fs_half]).astype(np.float32)
+
+
+def rotation_grid(angles: Sequence[float], hand_axes: Sequence[int]) -> np.ndarray:
+    """Static per-(axis, orientation) rotations: RotY(pi) @ AngleAxis(angle,
+    e_axis) (hand_set.cpp:49-73). Full hand frame = local_frame @ this."""
+    rot_binormal = np.array([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]])
+    mats = []
+    for ax in hand_axes:
+        for ang in angles:
+            c, s = math.cos(ang), math.sin(ang)
+            if ax == 0:
+                R = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+            elif ax == 1:
+                R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+            else:
+                R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            mats.append(rot_binormal @ R)
+    return np.stack(mats).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Static parameters of the hand search."""
+
+    finger_width: float
+    outer_diameter: float
+    hand_depth: float
+    hand_height: float
+    init_bite: float
+    num_placements: int
+    deepen_hand: bool
+    friction_cos: float
+    min_viable: int
+    depths: Tuple[float, ...]
+    spacing: Tuple[float, ...]
+
+    @staticmethod
+    def from_config(cfg: DetectorConfig) -> "SearchParams":
+        hg = cfg.hand_geometry
+        return SearchParams(
+            finger_width=hg.finger_width,
+            outer_diameter=hg.outer_diameter,
+            hand_depth=hg.depth,
+            hand_height=hg.height,
+            init_bite=hg.init_bite,
+            num_placements=cfg.num_finger_placements,
+            deepen_hand=cfg.deepen_hand,
+            friction_cos=math.cos(cfg.friction_coeff * math.pi / 180.0),
+            min_viable=cfg.min_viable,
+            depths=tuple(hg.deepen_depths()),
+            spacing=tuple(finger_spacing(hg, cfg.num_finger_placements).tolist()),
+        )
+
+
+def _masked_min(x, m, dim=-1):
+    return torch.amin(torch.where(m, x, _POS), dim=dim)
+
+
+def _masked_max(x, m, dim=-1):
+    return torch.amax(torch.where(m, x, _NEG), dim=dim)
+
+
+def _placement_minima(x, y, hcrop, p: SearchParams):
+    """Sufficient statistics for every bite test (finger_hand.cpp:26-73):
+    the min hand-frame x over the height-cropped points (..., ), and over
+    those inside each of the 2P finger slabs (..., 2P). One slab at a time,
+    so no (..., 2P, K) tensor is ever held."""
+    minx_all = _masked_min(x, hcrop)
+    lo = np.asarray(p.spacing, np.float32)
+    hi = lo + np.float32(p.finger_width)
+    minx_slab = torch.stack(
+        [_masked_min(x, hcrop & (y > float(a)) & (y < float(b)))
+         for a, b in zip(lo, hi)], dim=-1)
+    return minx_all, minx_slab
+
+
+def _placements_at_bite(minx_all, minx_slab, bite: float, p: SearchParams):
+    """fingers (..., 2P) at a given bite from the min-x statistics:
+    any_crop = exists x < bite; abort = exists x < bite - depth;
+    collision(p) = exists slab-p point with x < bite."""
+    any_crop = minx_all < bite
+    abort = minx_all < bite - p.hand_depth
+    coll = minx_slab < bite
+    return (any_crop & ~abort)[..., None] & ~coll
+
+
+def _middle_placement(hand_ok):
+    """chooseMiddleHand (finger_hand.cpp:89-105): index
+    hand_idx[ceil(n/2)-1] of the valid placements."""
+    cnt = torch.sum(hand_ok, dim=-1)
+    target = (cnt + 1) // 2
+    cs = torch.cumsum(hand_ok.to(torch.int64), dim=-1)
+    sel = hand_ok & (cs == target[..., None])
+    return torch.argmax(sel.to(torch.int32), dim=-1)
+
+
+def _antipodal_label(x, y, z, ny, closing, p: SearchParams):
+    """Antipodal::evaluateGrasp on the closing-region points
+    (antipodal.cpp:10-96): lateral=y, forward=x, vertical=z; hand-frame
+    normals; l=(0,-1,0), r=(0,1,0). Returns (full, half)."""
+    any_close = torch.any(closing, dim=-1)
+    min_y = _masked_min(y, closing) + 0.003
+    max_y = _masked_max(y, closing) - 0.003
+    left = closing & ((-ny) > p.friction_cos) & (y < min_y[..., None])
+    right = closing & (ny > p.friction_cos) & (y > max_y[..., None])
+    any_l = torch.any(left, dim=-1)
+    any_r = torch.any(right, dim=-1)
+    half = any_l | any_r
+
+    top_x = torch.minimum(_masked_max(x, left), _masked_max(x, right))
+    bot_x = torch.maximum(_masked_min(x, left), _masked_min(x, right))
+    top_z = torch.minimum(_masked_max(z, left), _masked_max(z, right))
+    bot_z = torch.maximum(_masked_min(z, left), _masked_min(z, right))
+    in_box = (x >= bot_x[..., None]) & (x <= top_x[..., None]) & \
+             (z >= bot_z[..., None]) & (z <= top_z[..., None])
+    nl = torch.sum(left & in_box, dim=-1)
+    nr = torch.sum(right & in_box, dim=-1)
+    full = any_l & any_r & (nl >= p.min_viable) & (nr >= p.min_viable)
+    return full, half & any_close
+
+
+def _eval_orientations(rel, nrm, nvalid, frames, rfix, p: SearchParams):
+    """Evaluate every (axis, orientation) slot for a block of samples
+    (hand_set.cpp:49-116 + finger_hand.cpp + antipodal labeling).
+
+    rel: (S, K, 3) neighbor offsets from the sample; nrm: (S, K, 3) normals;
+    nvalid: (S, K); frames: (S, 3, 3); rfix: (M, 3, 3) static rotations.
+    deepenHand's scan in closed form: the hand stays collision-free up to
+    depth Dmax = min(minx_slab_l, minx_slab_r, minx_all + depth) and needs a
+    cropped point at the first step (d0 > minx_all).
+    """
+    R = torch.einsum("sij,mjk->msik", frames, rfix)        # (M, S, 3, 3)
+    pts = torch.einsum("skj,msji->mski", rel, R)           # hand-frame points
+    ny = torch.einsum("skj,msj->msk", nrm, R[..., :, 1])   # hand-frame n_y
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+
+    hcrop = nvalid[None] & (z > -p.hand_height) & (z < p.hand_height)
+    P = p.num_placements
+    fs = torch.tensor(p.spacing, dtype=torch.float32, device=rel.device)
+    fw = float(np.float32(p.finger_width))
+
+    minx_all, minx_slab = _placement_minima(x, y, hcrop, p)
+    fingers = _placements_at_bite(minx_all, minx_slab, p.init_bite, p)
+    hand_ok = fingers[..., :P] & fingers[..., P:]          # (M, S, P)
+    valid0 = torch.any(hand_ok, dim=-1)
+    mid = _middle_placement(hand_ok)                       # (M, S)
+
+    minx_l = torch.gather(minx_slab, -1, mid[..., None])[..., 0]
+    minx_r = torch.gather(minx_slab, -1, (mid + P)[..., None])[..., 0]
+    fs_l = fs[mid]
+    fs_r = fs[mid + P]
+
+    if p.deepen_hand and len(p.depths) > 0:
+        # deepenHand (finger_hand.cpp:107-139): the survivor count of the
+        # cumulative-AND is #{depths <= Dmax}, gated on the first step.
+        depths = torch.tensor(p.depths, dtype=torch.float32, device=rel.device)
+        dmax = torch.minimum(torch.minimum(minx_l, minx_r),
+                             minx_all + p.hand_depth)
+        first_ok = depths[0] > minx_all
+        n_alive = torch.where(
+            first_ok, torch.sum(depths[:, None, None] <= dmax[None], dim=0), 0)
+        top = torch.where(n_alive > 0, depths[torch.clamp(n_alive - 1, min=0)],
+                          p.init_bite)
+    else:
+        top = torch.full(x.shape[:2], p.init_bite, dtype=torch.float32,
+                         device=rel.device)
+
+    bottom = top - p.hand_depth
+    left = fs_l + fw
+    right = fs_r
+    center = 0.5 * (left + right)
+
+    closing = hcrop & (x > bottom[..., None]) & (x < top[..., None]) & \
+        (y > left[..., None]) & (y < right[..., None])
+    valid = valid0 & torch.any(closing, dim=-1)
+
+    width = _masked_max(y, closing) - _masked_min(y, closing)
+    width = torch.where(valid, width, 0.0)
+
+    full, half = _antipodal_label(x, y, z, ny, closing, p)
+
+    # Hand pose (hand.cpp:41-45): position = frame * [bottom, center, 0] + s.
+    pos_local = torch.stack([bottom, center, torch.zeros_like(bottom)], dim=-1)
+    pos_world = torch.einsum("msij,msj->msi", R, pos_local)
+
+    return dict(R=R, pos=pos_world, top=top, bottom=bottom, center=center,
+                width=width, mid=mid, valid=valid,
+                full=full & valid, half=half & valid)
+
+
+def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
+                   radius: float, rfix, params: SearchParams, k: int):
+    S = sample_pos.shape[0]
+    M = rfix.shape[0]
+    # Sample blocks keep each (M, B, K) working tensor under _BLOCK_ELEMS;
+    # for very large K the block shrinks toward 8 rows, so the uncapped
+    # identity search runs at any cloud size.
+    budget = _BLOCK_ELEMS // max(M * k, 1)
+    if budget >= 128:
+        blk = max(128, min(_ceil128(S), budget & ~127))
+    else:
+        blk = max(8, budget & ~7)
+
+    def eval_block(spos_b, fval_b, frames_b):
+        if k >= points.shape[0]:
+            # Whole-cloud neighborhoods: broadcast instead of gathering.
+            nvalid, _ = radius_mask(spos_b, fval_b, points, pmask, radius)
+            rel = points[None, :, :] - spos_b[:, None, :]
+            nrm = normals[None, :, :].expand(rel.shape)
+        else:
+            idx, nvalid = radius_neighbors(spos_b, fval_b, points, pmask,
+                                           radius=radius, k=k)
+            rel = points[idx] - spos_b[:, None, :]
+            nrm = normals[idx]
+        return _eval_orientations(rel, nrm, nvalid, frames_b, rfix, params)
+
+    if S <= blk:
+        return eval_block(sample_pos, frame_valid, frames)
+
+    # Valid-first sample order; blocks past the valid count hold no valid
+    # frame and are skipped (their slots stay zero and invalid). One host
+    # read of the count decides how many blocks run.
+    order = torch.argsort(~frame_valid, stable=True)
+    n_valid = max(int(frame_valid.sum()), 1)
+    parts = [eval_block(sample_pos[sl], frame_valid[sl], frames[sl])
+             for sl in (order[b:b + blk] for b in range(0, n_valid, blk))]
+    out = {}
+    for key in parts[0]:
+        live = torch.cat([pt[key] for pt in parts], dim=1)
+        full = live.new_zeros((M, S) + live.shape[2:])
+        full[:, order[:live.shape[1]]] = live
+        out[key] = full
+    return out
+
+
+def search_hands_with_frames(cloud, sample_pos, frames, fvalid,
+                             cfg: DetectorConfig) -> Grasps:
+    """Hand search at given local frames. Returns a flat Grasps batch of
+    S * num_axes * num_orientations, sample-major then (axis, orientation):
+    the reference's HandSet order (hand_set.cpp:31-47)."""
+    params = SearchParams.from_config(cfg)
+    rgrid = torch.from_numpy(rotation_grid(cfg.angles, cfg.hand_axes)).to(
+        sample_pos.device)
+    out = _search_kernel(cloud.points, cloud.normals, cloud.mask,
+                         sample_pos, frames, fvalid, cfg.hand_search_radius,
+                         rgrid, params, cfg.search_neighbors_cap)
+
+    S = sample_pos.shape[0]
+    M = rgrid.shape[0]
+
+    def flat(a):
+        # (M, S, ...) -> (S, M, ...) -> (S*M, ...)
+        return a.transpose(0, 1).reshape((S * M,) + a.shape[2:])
+
+    sample_rep = torch.repeat_interleave(sample_pos, M, dim=0)
+    return Grasps(
+        position=flat(out["pos"]) + sample_rep,
+        orientation=flat(out["R"]),
+        sample=sample_rep,
+        width=flat(out["width"]),
+        score=torch.zeros(S * M, device=sample_pos.device),
+        bottom=flat(out["bottom"]),
+        top=flat(out["top"]),
+        center=flat(out["center"]),
+        finger_placement=flat(out["mid"]),
+        full_antipodal=flat(out["full"]),
+        half_antipodal=flat(out["half"]),
+        valid=flat(out["valid"]),
+        sample_id=torch.repeat_interleave(
+            torch.arange(S, device=sample_pos.device), M),
+    )

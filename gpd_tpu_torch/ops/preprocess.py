@@ -1,0 +1,97 @@
+"""Point-cloud preprocessing (port of gpd_tpu/ops/preprocess.py:21-98,199).
+
+Fixed-shape and mask-based like the JAX package: nothing changes a tensor's
+size on the device; compaction is a host step (``CloudArrays.compact_host``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from gpd_tpu_torch.core.types import PAD_COORD, CloudArrays
+from gpd_tpu_torch.ops import draws
+
+
+def _apply_mask(cloud: CloudArrays, mask: torch.Tensor) -> CloudArrays:
+    pts = torch.where(mask[:, None], cloud.points, PAD_COORD)
+    return CloudArrays(points=pts, normals=cloud.normals,
+                       cam_source=cloud.cam_source, mask=mask,
+                       view_points=cloud.view_points)
+
+
+def in_workspace(points: torch.Tensor, workspace: Sequence[float]) -> torch.Tensor:
+    """Strict-inequality axis-aligned box test (cloud.cpp:243-249)."""
+    w = workspace
+    return ((points[:, 0] > w[0]) & (points[:, 0] < w[1]) &
+            (points[:, 1] > w[2]) & (points[:, 1] < w[3]) &
+            (points[:, 2] > w[4]) & (points[:, 2] < w[5]))
+
+
+def filter_workspace(cloud: CloudArrays, workspace: Sequence[float]) -> CloudArrays:
+    """Axis-aligned workspace crop (reference: cloud.cpp:206-267)."""
+    return _apply_mask(cloud, cloud.mask & in_workspace(cloud.points, workspace))
+
+
+def _voxel_kernel(points, normals, cam_source, mask, cell_size: float):
+    n = points.shape[0]
+    # Min over valid points (the reference's pcl::getMinMax3D,
+    # cloud.cpp:288-291).
+    min_pt = torch.amin(torch.where(mask[:, None], points, torch.inf), dim=0)
+    cell = torch.tensor(cell_size, dtype=torch.float32, device=points.device)
+    bins = torch.floor((points - min_pt[None, :]) / cell).to(torch.int32)
+    # Invalid points go to a sentinel cell that sorts last.
+    bins = torch.where(mask[:, None], bins, 1 << 24)
+
+    # Lexicographic (x, y, z, original index) order, the reference's
+    # std::set<Vector4i> iteration order (cloud.cpp:292-333) with the first
+    # inserted point as the cell's representative: stable sorts from the
+    # least significant key (gpd_tpu uses jnp.lexsort).
+    order = torch.arange(n, device=points.device)
+    for axis in (2, 1, 0):
+        order = order[torch.argsort(bins[order, axis], stable=True)]
+    sb = bins[order]
+    svalid = mask[order]
+    new_cell = torch.any(sb != torch.roll(sb, 1, dims=0), dim=1)
+    new_cell[0] = True
+    is_rep = new_cell & svalid
+
+    seg = torch.cumsum(new_cell, dim=0) - 1        # segment id in sorted order
+    ones = svalid.to(torch.float32)
+    counts = torch.zeros(n, device=points.device).index_add_(0, seg, ones)
+    nrm_sum = torch.zeros((n, 3), device=points.device).index_add_(
+        0, seg, normals[order] * ones[:, None])
+
+    rep_pts = torch.addcmul(min_pt[None, :], sb.to(torch.float32), cell)
+    avg_nrm = nrm_sum[seg] / torch.clamp(counts[seg], min=1.0)[:, None]
+
+    out_pts = torch.where(is_rep[:, None], rep_pts, PAD_COORD)
+    out_nrm = torch.where(is_rep[:, None], avg_nrm, 0.0)
+    out_cam = torch.where(is_rep, cam_source[order], 0)
+    return out_pts, out_nrm, out_cam, is_rep
+
+
+def voxelize(cloud: CloudArrays, cell_size: float) -> CloudArrays:
+    """Voxel downsample with the reference's semantics (cloud.cpp:286-348):
+    one representative per cell (first point in original order), snapped to
+    the voxel corner, normals averaged over the cell, camera source from the
+    representative, output in lexicographic cell order."""
+    pts, nrm, cam, mask = _voxel_kernel(cloud.points, cloud.normals,
+                                        cloud.cam_source, cloud.mask,
+                                        cell_size)
+    return CloudArrays(points=pts, normals=nrm, cam_source=cam, mask=mask,
+                       view_points=cloud.view_points)
+
+
+def subsample_uniform(generator: torch.Generator, candidate_mask: torch.Tensor,
+                      num_samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``num_samples`` indices uniformly WITHOUT replacement from the
+    masked set; returns (indices, valid_mask). Past the pool's size the
+    slots come back with ``valid_mask=False`` (a deliberate divergence from
+    the reference's with-replacement rand()%n, cloud.cpp:350-405)."""
+    idx = draws.subsample(generator, candidate_mask, num_samples)
+    total = candidate_mask.sum()
+    valid = candidate_mask[idx] & (
+        torch.arange(num_samples, device=idx.device) < total)
+    return idx, valid

@@ -1,0 +1,121 @@
+"""Grasp filtering, selection and clustering (port of gpd_tpu/select.py).
+
+Mask-based equivalents of the reference's filterGraspsWorkspace /
+filterGraspsDirection / selectGrasps (src/gpd/grasp_detector.cpp:334-456)
+and grasp clustering (src/gpd/clustering.cpp:5-105).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+from gpd_tpu_torch.core.types import Grasps
+
+
+def filter_grasps_workspace(grasps: Grasps, workspace: Sequence[float],
+                            min_aperture: float, max_aperture: float,
+                            hand_outer_diameter: float,
+                            hand_depth: float) -> Grasps:
+    """Aperture + 5-keypoint workspace filter (grasp_detector.cpp:334-398),
+    including the reference's right_top = left_bottom + depth*approach quirk
+    (grasp_detector.cpp:362-363), so filter outcomes match."""
+    pos = grasps.position
+    binormal = grasps.binormal
+    approach = grasps.approach
+    half_w = 0.5 * hand_outer_diameter
+    left_bottom = pos + half_w * binormal
+    right_bottom = pos - half_w * binormal
+    left_top = left_bottom + hand_depth * approach
+    right_top = left_bottom + hand_depth * approach   # reference quirk
+    appr = pos - 0.05 * approach
+    pts = torch.stack([left_bottom, right_bottom, left_top, right_top, appr],
+                      dim=1)                                       # (G, 5, 3)
+    w = workspace
+    lo = torch.tensor([w[0], w[2], w[4]], dtype=torch.float32, device=pos.device)
+    hi = torch.tensor([w[1], w[3], w[5]], dtype=torch.float32, device=pos.device)
+    inside = torch.all((torch.amin(pts, dim=1) >= lo) &
+                       (torch.amax(pts, dim=1) <= hi), dim=-1)
+    aperture_ok = (grasps.width >= min_aperture) & (grasps.width <= max_aperture)
+    return dataclasses.replace(grasps, valid=grasps.valid & inside & aperture_ok)
+
+
+def filter_grasps_direction(grasps: Grasps, direction: Sequence[float],
+                            thresh_rad: float) -> Grasps:
+    """Approach-direction filter (grasp_detector.cpp:422-456)."""
+    d = torch.tensor(direction, dtype=torch.float32,
+                     device=grasps.position.device)
+    d = d / torch.clamp(torch.linalg.vector_norm(d), min=1e-12)
+    angle = torch.arccos(torch.clamp(grasps.approach @ d, -1.0, 1.0))
+    return dataclasses.replace(grasps, valid=grasps.valid & (angle <= thresh_rad))
+
+
+def select_top_k(grasps: Grasps, k: int, out_cap: int = 0
+                 ) -> Tuple[Grasps, torch.Tensor]:
+    """Top-k by score among valid grasps (grasp_detector.cpp:405-420).
+    Returns (grasps reordered score-descending with only the top-k valid,
+    the full permutation). ``out_cap`` > 0 truncates the returned batch to
+    its leading out_cap rows (>= k)."""
+    scores = torch.where(grasps.valid, grasps.score, -torch.inf)
+    order = torch.argsort(-scores, stable=True)
+    cap = grasps.capacity if out_cap <= 0 else min(out_cap, grasps.capacity)
+    g = grasps.take(order[:cap])
+    keep = torch.arange(cap, device=order.device) < k
+    return dataclasses.replace(g, valid=g.valid & keep), order
+
+
+def _cluster_kernel(pos, axis, score, valid, min_inliers: int):
+    """Non-greedy clustering (clustering.cpp remove_inliers=false): every
+    hand gathers its aligned, nearby, axis-projected-close partners."""
+    G = pos.shape[0]
+    cos_thresh = math.cos(12.0 * math.pi / 180.0)
+    MAX_DIST = 0.05
+    PROJ_DIST = 0.005
+
+    aligned = torch.abs(axis @ axis.T) > cos_thresh
+    delta = pos[:, None, :] - pos[None, :, :]                 # (G, G, 3)
+    dist_ok = torch.linalg.vector_norm(delta, dim=-1) <= MAX_DIST
+    proj = delta - axis[:, None, :] * \
+        torch.einsum("id,ijd->ij", axis, delta)[..., None]
+    proj_ok = torch.linalg.vector_norm(proj, dim=-1) <= PROJ_DIST
+    pair = aligned & dist_ok & proj_ok & valid[:, None] & valid[None, :]
+    pair = pair & ~torch.eye(G, dtype=torch.bool, device=pos.device)
+
+    n = torch.sum(pair, dim=1)
+    nf = torch.clamp(n, min=1).to(torch.float32)
+    pf = pair.to(torch.float32)
+    mean_pos = (pf @ pos) / nf[:, None]
+    # Summed over the pairs only: invalid rows carry score -inf, and a
+    # product pair @ score would make 0 * -inf = NaN in every row (gpd_tpu's
+    # select.py:102 does, when fewer hands than the selection cap are valid).
+    mean_s = torch.sum(torch.where(pair, score[None, :], 0.0), dim=1) / nf
+    # Centered (two-pass) variance: E[s^2] - E[s]^2 cancels in f32 for
+    # tight clusters (a 1-inlier cluster's std must be exactly 0).
+    d = score[None, :] - mean_s[:, None]                      # (G, G)
+    var = torch.sum(torch.where(pair, d * d, 0.0), dim=1) / nf
+    std = torch.sqrt(torch.clamp(var, min=0.0))
+    conf_lb = mean_s - 2.576 * std / torch.sqrt(nf)
+    ok = valid & (n >= min_inliers)
+    return ok, mean_pos, conf_lb, n
+
+
+def cluster_grasps(grasps: Grasps, min_inliers: int) -> Grasps:
+    """Grasp NMS/aggregation (clustering.cpp:5-105): a cluster center keeps
+    hand i's orientation, takes the mean inlier position, and scores by the
+    99%-confidence lower bound mean - 2.576 sigma / sqrt(n)."""
+    ok, mean_pos, conf_lb, _ = _cluster_kernel(
+        grasps.position, grasps.axis, grasps.score, grasps.valid, min_inliers)
+    return dataclasses.replace(
+        grasps,
+        position=torch.where(ok[:, None], mean_pos, grasps.position),
+        score=torch.where(ok, conf_lb, grasps.score),
+        valid=ok)
+
+
+def sort_by_score(grasps: Grasps) -> Grasps:
+    """Final score-descending ordering (grasp_detector.cpp:305)."""
+    scores = torch.where(grasps.valid, grasps.score, -torch.inf)
+    return grasps.take(torch.argsort(-scores, stable=True))

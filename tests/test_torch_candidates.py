@@ -1,0 +1,132 @@
+"""gpd_tpu_torch's candidate stage (frames -> hand search -> filters)
+against gpd_tpu.detector.candidates_stage on the CPU.
+
+Both packages get gpd_tpu's preprocessed cloud and the same samples, taken
+where gpd_tpu's own local frame is defined (the curvature axis of a flat
+patch moves with the last bits of its moment sums; ROADMAP.md C). Masks
+must agree exactly (XOR 0 on valid / full_antipodal / half_antipodal) and
+poses, widths and closing-box coordinates within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpd_tpu.detector as jdet
+from gpd_tpu.config import DetectorConfig as JConfig
+from gpd_tpu_torch import detector as tdet
+from gpd_tpu_torch.config import DetectorConfig
+from gpd_tpu_torch.core.types import CloudArrays
+from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.ops import candidates as cand
+
+MASKS = ("valid", "full_antipodal", "half_antipodal")
+VALUES = ("position", "orientation", "width", "bottom", "top", "center")
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def port_cloud(jc):
+    """gpd_tpu's cloud arrays as the port's CloudArrays (on the CPU)."""
+    return CloudArrays(points=T(jc.points), normals=T(jc.normals),
+                       cam_source=T(jc.cam_source).to(torch.int64),
+                       mask=T(jc.mask), view_points=T(jc.view_points))
+
+
+def frame_gap_ok(jcloud, spos, radius, min_gap=0.05):
+    """(S,) bool: gpd_tpu's local frame at each sample is well conditioned,
+    (l1 - l0) / l2 > min_gap for the eigenvalues of M = sum n n^T."""
+    n = np.asarray(jcloud.normals, np.float64)
+    p = np.asarray(jcloud.points, np.float64)
+    inr = (np.sum((spos[:, None, :] - p[None]) ** 2, -1) <= radius ** 2) & \
+        np.asarray(jcloud.mask)[None]
+    M = np.einsum("sk,ki,kj->sij", inr.astype(np.float64), n, n)
+    w = np.linalg.eigvalsh(M)
+    return (w[:, 1] - w[:, 0]) > min_gap * np.maximum(w[:, 2], 1e-12)
+
+
+def prepared(points, view_points, cam_source, num_samples, seed):
+    """gpd_tpu's preprocessed cloud and up to num_samples sample positions
+    at well-conditioned frames."""
+    cfg = JConfig(num_samples=num_samples)
+    det = jdet.GraspDetector(cfg, params={})
+    jc = det.preprocess_cloud(points, view_points=view_points,
+                              cam_source=cam_source)
+    pts = np.asarray(jc.points)[np.asarray(jc.mask)]
+    cand_pos = pts[np.random.default_rng(seed).permutation(len(pts))]
+    ok = frame_gap_ok(jc, cand_pos, cfg.nn_radius_frames)
+    return jc, cand_pos[ok][:num_samples]
+
+
+def compare(jc, spos, cfg_kw=None):
+    kw = dict(num_samples=len(spos), **(cfg_kw or {}))
+    jcfg, tcfg = JConfig(**kw), DetectorConfig(**kw)
+    det = jdet.GraspDetector(jcfg, params={})
+    jcfg = det.effective_config(jc)
+    tcfg = tdet.GraspDetector(tcfg, device="cpu").effective_config(
+        port_cloud(jc))
+    smask = np.ones(len(spos), bool)
+    gj = jdet.candidates_stage(jc, jnp.asarray(spos), jnp.asarray(smask), jcfg)
+    gt = tdet.candidates_stage(port_cloud(jc), T(spos), T(smask), tcfg)
+    for f in MASKS:
+        xor = np.asarray(getattr(gj, f)) ^ getattr(gt, f).numpy()
+        assert xor.sum() == 0, (f, int(xor.sum()))
+    v = gt.valid.numpy()
+    assert v.sum() > 0
+    for f in VALUES:
+        np.testing.assert_allclose(np.asarray(getattr(gj, f))[v],
+                                   getattr(gt, f).numpy()[v], atol=1e-5,
+                                   err_msg=f)
+    np.testing.assert_array_equal(np.asarray(gj.sample_id),
+                                  gt.sample_id.numpy())
+    return gt
+
+
+CAMS = np.array([[0.5, 0.1, 0.2], [-0.3, 0.45, 0.1]], np.float32)
+
+
+def thin_cylinder(seed):
+    """A capped 15 mm cylinder: curved enough that its side has defined
+    frames (seen from the two CAMS), narrow enough to grasp."""
+    rng = np.random.default_rng(seed)
+    pts, nrm = syn.sample_cylinder(rng, 0.015, 0.1, 3000)
+    return rng, pts, nrm
+
+
+def test_single_object():
+    rng, pts, nrm = thin_cylinder(21)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, CAMS)
+    jc, spos = prepared(p, vp, cs, 48, 0)
+    gt = compare(jc, spos)
+    assert gt.half_antipodal.sum() > 0
+
+
+def test_two_camera_table_scene():
+    rng = np.random.default_rng(5)
+    pts, nrm = syn.make_scene(rng, n_objects=2, points_per_object=1500,
+                              table_points=1500, table_halfsize=0.15)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, syn.view_cameras(rng, 2))
+    assert vp.shape[0] == 2
+    jc, spos = prepared(p, vp, cs, 64, 1)
+    gt = compare(jc, spos)
+    assert gt.half_antipodal.sum() > 0
+
+
+@pytest.mark.parametrize("block_elems,search_cap", [(1 << 18, 0), (1 << 16, 512)])
+def test_blocked_search(monkeypatch, block_elems, search_cap):
+    """Sample blocks (identity and nearest-K neighborhoods), with samples of
+    invalid frames ordered last and skipped, give gpd_tpu's single-block
+    result."""
+    rng, pts, nrm = thin_cylinder(8)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, CAMS)
+    jc, spos = prepared(p, vp, cs, 40, 3)
+    # Samples far from the cloud have no frame (invalid, skipped blocks).
+    spos = np.concatenate([spos, np.full((9, 3), 0.9, np.float32)])[
+        np.random.default_rng(0).permutation(len(spos) + 9)]
+    monkeypatch.setattr(cand, "_BLOCK_ELEMS", block_elems)
+    kw = {"search_neighbors_cap": search_cap, "search_identity_max": 0} \
+        if search_cap else None
+    compare(jc, spos, kw)

@@ -1,0 +1,400 @@
+"""The whole slice, gpd_tpu_torch.detector against gpd_tpu.detector on the
+CPU, and properties of the port itself.
+
+The slice: GraspDetector.preprocess_cloud + detect of both packages, on two
+two-camera scenes.
+
+  - Scanned rods on a table: the voxelized clouds must be identical; detect
+    then runs on gpd_tpu's preprocessed cloud in both packages, because the
+    normals' last bits come from cancelling float32 moment sums whose order
+    differs (test_torch_ops.py holds them to gpd_tpu's own accuracy;
+    ROADMAP.md C). image_neighbors_cap=256, so the nearest-K image route
+    runs.
+  - A tube of dyadic lattice points, where the moment sums are exact: each
+    package detects on its own preprocessed cloud (identity image
+    neighborhoods).
+
+Both detects get the same sample positions (taken where gpd_tpu's local
+frame is defined), gpd_tpu's shadow draws injected through
+gpd_tpu_torch.ops.draws and the packaged 15-channel weights. gpd_tpu runs
+its bfloat16 channel-major route (the Pallas raster in interpret mode). The
+selected grasps must be the same set, positions within 1e-5 and scores
+within 1e-3.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import unittest.mock as mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpd_tpu.detector as jdet
+import gpd_tpu.ops.images as jimg
+from gpd_tpu.config import DetectorConfig as JConfig
+from gpd_tpu_torch import detector as tdet
+from gpd_tpu_torch.config import DetectorConfig
+from gpd_tpu_torch.core.types import CloudArrays, Grasps
+from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.ops import draws
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def jax_noise(key, S, V, K, n_sp, v_cap):
+    """gpd_tpu's shadow draws of detect(key) for samples 0..S-1, in the
+    layout of gpd_tpu_torch.ops.draws.shadow_noise."""
+    rks = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.fold_in(key, 2), jnp.arange(S, dtype=jnp.int32))
+    u = jnp.stack([jax.vmap(lambda rk: jax.random.uniform(
+        jax.random.fold_in(rk, 2 * c), (K, n_sp)))(rks) for c in range(V)], 1)
+    jit = jax.vmap(lambda rk: jax.random.normal(
+        jax.random.fold_in(rk, 1), (v_cap, 1)))(rks)[..., 0]
+    return T(u), T(jit)
+
+
+def inject(key):
+    return mock.patch.object(
+        draws, "shadow_noise",
+        lambda gen, S, V, K, n_sp, v_cap, device: jax_noise(
+            key, S, V, K, n_sp, v_cap))
+
+
+def frame_gap_ok(jcloud, spos, radius, min_gap=0.05):
+    """(S,) bool: gpd_tpu's local frame at each sample is well conditioned,
+    (l1 - l0) / l2 > min_gap for the eigenvalues of M = sum n n^T."""
+    n = np.asarray(jcloud.normals, np.float64)
+    p = np.asarray(jcloud.points, np.float64)
+    inr = (np.sum((spos[:, None, :] - p[None]) ** 2, -1) <= radius ** 2) & \
+        np.asarray(jcloud.mask)[None]
+    M = np.einsum("sk,ki,kj->sij", inr.astype(np.float64), n, n)
+    w = np.linalg.eigvalsh(M)
+    return (w[:, 1] - w[:, 0]) > min_gap * np.maximum(w[:, 2], 1e-12)
+
+
+def port_cloud(jc):
+    return CloudArrays(points=T(jc.points), normals=T(jc.normals),
+                       cam_source=T(jc.cam_source).to(torch.int64),
+                       mask=T(jc.mask), view_points=T(jc.view_points))
+
+
+def port_grasps(g):
+    return Grasps(**{f.name: T(getattr(g, f.name)).to(
+        torch.int64 if f.name in ("sample_id", "finger_placement") else None)
+        for f in dataclasses.fields(Grasps)})
+
+
+def rod_scene(seed):
+    """Three thin upright rods (graspable, curved, so their frames are
+    defined) on a small table patch, seen by two cameras."""
+    rng = np.random.default_rng(seed)
+    parts, nrms = [], []
+    for x, y in ((-0.05, -0.03), (0.04, -0.04), (0.0, 0.05)):
+        p, n = syn.sample_cylinder(rng, rng.uniform(0.012, 0.02), 0.1, 1500)
+        parts.append(p + np.array([x, y, 0.05], np.float32))
+        nrms.append(n)
+    txy = rng.uniform(-0.1, 0.1, (1200, 2)).astype(np.float32)
+    parts.append(np.concatenate([txy, np.zeros((1200, 1), np.float32)], 1))
+    nrms.append(np.tile(np.array([0, 0, 1], np.float32), (1200, 1)))
+    cams = np.array([[0.45, 0.15, 0.35], [-0.2, 0.45, 0.3]], np.float32)
+    return syn.render_fused_views(rng, np.concatenate(parts),
+                                  np.concatenate(nrms), cams)
+
+
+def sample_where_frames_defined(jd, jc, n, seed=0):
+    """``n`` cloud points, in a seeded random order, at which gpd_tpu's local
+    frame is well conditioned; all valid."""
+    pool = np.asarray(jc.points)[np.asarray(jc.mask)]
+    pool = pool[np.random.default_rng(seed).permutation(len(pool))]
+    spos = pool[frame_gap_ok(jc, pool, jd.cfg.nn_radius_frames)][:n]
+    assert len(spos) == n
+    return spos, np.ones(n, bool)
+
+
+def _interpret(call):
+    def run(*args, **kw):
+        kw["interpret"] = True
+        return call(*args, **kw)
+    return run
+
+
+def jax_detect(jd, jc, spos, smask, key):
+    """gpd_tpu's detect on its bfloat16 channel-major route, the Pallas
+    raster in interpret mode."""
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jimg, "_use_pallas", lambda: True), \
+                mock.patch.object(jimg.pl, "pallas_call",
+                                  _interpret(jimg.pl.pallas_call)):
+            return jd.detect(jc, jnp.asarray(spos), jnp.asarray(smask),
+                             key=key, verbose=False).to_host()
+    finally:
+        jax.clear_caches()
+
+
+def assert_same_selection(gj, gt):
+    """The same set of selected grasps: positions and orientations within
+    1e-5, scores within 1e-3, all finite."""
+    vj, vt = gj.valid, gt.valid
+    assert vj.sum() == vt.sum() > 0
+    assert np.isfinite(gj.score[vj]).all() and np.isfinite(gt.score[vt]).all()
+    oj = np.lexsort(gj.position[vj].T)
+    ot = np.lexsort(gt.position[vt].T)
+    np.testing.assert_allclose(gj.position[vj][oj], gt.position[vt][ot],
+                               atol=1e-5)
+    np.testing.assert_allclose(gj.orientation[vj][oj],
+                               gt.orientation[vt][ot], atol=1e-5)
+    np.testing.assert_allclose(gj.score[vj][oj], gt.score[vt][ot], atol=1e-3)
+
+
+def test_whole_slice_selects_the_same_grasps():
+    p, cs, vp = rod_scene(2)
+    kw = dict(num_samples=64, image_neighbors_cap=256, num_selected=12)
+    jd = jdet.GraspDetector(JConfig(**kw))
+    td = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = td.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    np.testing.assert_array_equal(np.asarray(jc.points), tc.points.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.mask), tc.mask.numpy())
+    assert (tc.normals.norm(dim=1)[tc.mask] > 0.99).all()
+    tc = port_cloud(jc)
+    assert td.effective_config(tc).image_neighbors_cap == 256 < tc.capacity
+
+    key = jax.random.PRNGKey(11)
+    spos, smask = sample_where_frames_defined(jd, jc, 64)
+    gj = jax_detect(jd, jc, spos, smask, key)
+    with inject(key):
+        gt = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
+    assert td.last_counts["candidates"] >= 64    # clustering sees no -inf row
+    assert_same_selection(gj, gt)
+
+
+def lattice_shell():
+    """A skewed elliptic tube of dyadic lattice points (1/512 m spacing),
+    symmetric about the origin only through it: the centroid is exactly 0
+    and every moment sum is exact in float32, so both packages estimate
+    the same normals; no mirror symmetry makes hands tie. Two cameras."""
+    g = np.arange(-16, 17)
+    x, y, z = np.meshgrid(g, g, np.arange(-15, 16), indexing="ij")
+    pts = np.stack([x, y, z], -1).reshape(-1, 3)
+    q = pts[:, 0] ** 2 + pts[:, 0] * pts[:, 1] + 2 * pts[:, 1] ** 2
+    pts = (pts[(q > 60) & (q <= 80)] / 512.0).astype(np.float32)
+    vp = np.array([[0.3, 0.2, 0.1], [-0.2, -0.3, 0.25]], np.float32)
+    cam = np.stack([pts[:, 0] > -0.01, pts[:, 0] < 0.01]).astype(np.int32)
+    return pts, cam, vp
+
+
+def test_whole_slice_on_own_preprocessed_clouds():
+    """Each package detects on the cloud its own preprocess_cloud made
+    (identity image neighborhoods: the cloud is under the cap)."""
+    p, cs, vp = lattice_shell()
+    kw = dict(num_samples=32, voxelize=False, normals_radius=0.008,
+              num_selected=12)
+    jd = jdet.GraspDetector(JConfig(**kw))
+    td = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = td.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    np.testing.assert_array_equal(np.asarray(jc.points), tc.points.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.mask), tc.mask.numpy())
+    np.testing.assert_allclose(np.asarray(jc.normals), tc.normals.numpy(),
+                               atol=1e-5)
+    assert td.effective_config(tc).image_neighbors_cap == tc.capacity
+
+    key = jax.random.PRNGKey(3)
+    spos, smask = sample_where_frames_defined(jd, jc, 32)
+    gj = jax_detect(jd, jc, spos, smask, key)
+    with inject(key):
+        gt = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
+    assert td.last_counts["candidates"] >= 64    # clustering sees no -inf row
+    assert_same_selection(gj, gt)
+
+
+def test_detect_stage_times():
+    """sync_stages adds each stage's time; the stages sum to the request."""
+    p, cs, vp = lattice_shell()
+    td = tdet.GraspDetector(DetectorConfig(num_samples=16, voxelize=False,
+                                           normals_radius=0.008),
+                            device="cpu")
+    cloud = td.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    td.detect(cloud, verbose=False)
+    assert set(td.last_runtimes) == {"detect", "select", "total"}
+    td.detect(cloud, verbose=False, sync_stages=True)
+    rt = td.last_runtimes
+    stages = ("sample", "candidates", "descriptors", "images", "classify")
+    assert set(rt) == {"detect", "select", "total", *stages}
+    assert all(rt[s] > 0 for s in stages)
+    assert sum(rt[s] for s in stages) + rt["select"] <= rt["total"] * 1.001
+
+
+def cluster_batch(n_valid, G=64, seed=0):
+    """Hands as select_top_k hands them to clustering: the first n_valid
+    valid and score-descending, the rest invalid with score -inf. Two
+    groups of nearly aligned hands along their axes, the rest scattered."""
+    rng = np.random.default_rng(seed)
+    axis = np.array([0.0, 0.0, 1.0]) + rng.normal(0, 0.05, (G, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    pos = rng.uniform(-0.2, 0.2, (G, 3))
+    pos[:G // 4] = [0.01, 0.02, 0.0] + axis[:G // 4] * rng.uniform(
+        -0.02, 0.02, (G // 4, 1)) + rng.normal(0, 0.001, (G // 4, 3))
+    pos[G // 4:G // 2] = [-0.05, 0.0, 0.1] + rng.normal(0, 0.002,
+                                                        (G // 4, 3))
+    rng.shuffle(pos)
+    orientation = np.zeros((G, 3, 3))
+    orientation[:, :, 2] = axis
+    valid = np.arange(G) < n_valid
+    score = np.where(valid, np.sort(rng.uniform(-5, 15, G))[::-1], -np.inf)
+    f32 = np.float32
+    zeros = np.zeros(G, f32)
+    return dict(position=pos.astype(f32), orientation=orientation.astype(f32),
+                sample=np.zeros((G, 3), f32), width=zeros,
+                score=score.astype(f32), bottom=zeros, top=zeros,
+                center=zeros, finger_placement=np.zeros(G, np.int32),
+                full_antipodal=np.zeros(G, bool),
+                half_antipodal=np.zeros(G, bool), valid=valid,
+                sample_id=np.arange(G, dtype=np.int32))
+
+
+def cluster_numpy(pos, axis, score, valid, min_inliers):
+    """clustering.cpp's non-greedy clustering, hand by hand over its
+    partners only, in float64."""
+    pos, axis, score = (np.asarray(a, np.float64) for a in (pos, axis, score))
+    out_pos, out_score, ok = pos.copy(), score.copy(), np.zeros(len(pos), bool)
+    cos12 = np.cos(np.deg2rad(12.0))
+    for i in np.nonzero(valid)[0]:
+        d = pos[i] - pos
+        proj = d - axis[i] * (d @ axis[i])[:, None]
+        pair = (valid & (np.abs(axis @ axis[i]) > cos12)
+                & (np.linalg.norm(d, axis=1) <= 0.05)
+                & (np.linalg.norm(proj, axis=1) <= 0.005))
+        pair[i] = False
+        n = pair.sum()
+        if n < max(min_inliers, 1):
+            continue
+        ok[i] = True
+        out_pos[i] = pos[pair].mean(0)
+        out_score[i] = score[pair].mean() - 2.576 * score[pair].std() / \
+            np.sqrt(n)
+    return out_pos, out_score, ok
+
+
+@pytest.mark.parametrize("n_valid", [10, 64])
+def test_cluster_scores_over_pairs_only(n_valid):
+    """Fewer valid hands than the batch (the -inf rows gpd_tpu's
+    cluster_grasps turns into NaN scores, ROADMAP.md C) and a full batch:
+    the port against a NumPy evaluation over the pairs only, and against
+    gpd_tpu where the batch is full."""
+    from gpd_tpu.core.types import Grasps as JGrasps
+    import gpd_tpu.select as jsel
+    from gpd_tpu_torch import select as tsel
+    b = cluster_batch(n_valid)
+    gt = tsel.cluster_grasps(port_grasps(JGrasps(**b)), 1)
+    pos, score, ok = cluster_numpy(b["position"], b["orientation"][:, :, 2],
+                                   b["score"], b["valid"], 1)
+    assert 2 <= ok.sum() < n_valid
+    np.testing.assert_array_equal(gt.valid.numpy(), ok)
+    np.testing.assert_allclose(gt.position.numpy()[ok], pos[ok], atol=1e-5)
+    np.testing.assert_allclose(gt.score.numpy()[ok], score[ok], atol=1e-5)
+    if n_valid == len(ok):
+        gj = jsel.cluster_grasps(JGrasps(**{k: jnp.asarray(v)
+                                            for k, v in b.items()}), 1)
+        np.testing.assert_array_equal(np.asarray(gj.valid), ok)
+        np.testing.assert_allclose(np.asarray(gj.position),
+                                   gt.position.numpy(), atol=1e-6)
+        np.testing.assert_allclose(np.asarray(gj.score), gt.score.numpy(),
+                                   atol=1e-5)
+
+
+def test_active_sample_blocked_descriptor_inputs():
+    """More samples than one block (_SAMPLE_BLOCK = 512): active samples
+    first, inactive blocks skipped, shadow draws taken by original sample
+    id. Identical neighborhoods, shadow sets and sample map."""
+    assert tdet._SAMPLE_BLOCK == jdet._SAMPLE_BLOCK == 512
+    p, cs, vp = rod_scene(4)
+    kw = dict(num_samples=600, image_neighbors_cap=256)
+    jd = jdet.GraspDetector(JConfig(**kw), params={})
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    cfg_j = jd.effective_config(jc)
+    cfg_t = dataclasses.replace(DetectorConfig(**kw), **{
+        k: getattr(cfg_j, k) for k in ("search_neighbors_cap",
+                                       "image_neighbors_cap")})
+    key = jax.random.PRNGKey(5)
+    spos, smask = jd.sample_cloud(jc, key)
+    g = jdet.candidates_stage(jc, spos, smask, cfg_j)
+    active = np.asarray(g.valid).reshape(600, -1).any(1)
+    assert 0 < active.sum() < 512 < 600
+    out_j = jdet._descriptor_inputs(jc, g, spos, smask, key, cfg_j,
+                                    canonical=True)
+    noise = jax_noise(key, 600, 2, *tdet._shadow_shape(port_cloud(jc), cfg_t))
+    out_t = tdet._descriptor_inputs(port_cloud(jc), port_grasps(g), T(spos),
+                                    T(smask), noise, cfg_t)
+    nn_j, nv_j, sp_j, sv_j, sid_j = map(np.asarray, out_j)
+    nn_t, nv_t, sp_t, sv_t, sid_t = (a.numpy() for a in out_t)
+    np.testing.assert_array_equal(sid_j, sid_t)
+    np.testing.assert_array_equal(nv_j, nv_t)
+    np.testing.assert_array_equal(nn_j[nv_j], nn_t[nv_t])
+    np.testing.assert_array_equal(sv_j, sv_t)
+    np.testing.assert_allclose(sp_j[sv_j], sp_t[sv_t], atol=1e-6)
+    assert sv_t.any()
+
+
+def test_imports_neither_jax_nor_gpd_tpu():
+    code = ("import sys; import gpd_tpu_torch.detector; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gpd_tpu')]; print(bad); sys.exit(bool(bad))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_module_imports_without_triton_or_nvcc():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['triton'] = None\n"
+        "import gpd_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    gpd_tpu_torch.__path__, 'gpd_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "from gpd_tpu_torch.ops import _build\n"
+        "try:\n"
+        "    _build.nvcc()\n"
+        "except RuntimeError:\n"
+        "    print(len(names))\n"
+        "else:\n"
+        "    sys.exit('nvcc found')\n")
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[-1]) >= 14
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdet.GraspDetector(DetectorConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CloudArrays.from_numpy(np.zeros((4, 3), np.float32))
+    det = tdet.GraspDetector(DetectorConfig(), device="cpu")
+    assert det.device.type == "cpu"
+    assert next(det.net.parameters()).device.type == "cpu"
+
+
+def test_unported_options_raise():
+    pts = np.random.default_rng(0).normal(size=(300, 3)).astype(np.float32)
+    for kw in (dict(remove_outliers=True),):
+        det = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
+        with pytest.raises(NotImplementedError):
+            det.preprocess_cloud(pts)
+    det = tdet.GraspDetector(DetectorConfig(sample_above_plane=True),
+                             device="cpu")
+    with pytest.raises(NotImplementedError):
+        det.sample_cloud(det.preprocess_cloud(pts))

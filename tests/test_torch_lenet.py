@@ -1,0 +1,58 @@
+"""gpd_tpu_torch's LeNet against gpd_tpu.net.lenet on the CPU (float32 on
+both sides): the packaged 15- and 3-channel checkpoints carried across with
+params_from_numpy, the 3-fc NetCCFFF variant and the conv-without-ReLU
+(Eigen backend) forward, scores within 2e-4."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpd_tpu.net import lenet as jlenet
+from gpd_tpu_torch.net import lenet
+
+
+def images(channels, n=6, seed=0):
+    rng = np.random.default_rng(seed + channels)
+    return rng.integers(0, 256, size=(n, 60, 60, channels)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("channels", [15, 3])
+def test_packaged_checkpoint_scores(channels):
+    path = lenet.default_params_path(channels)
+    params = lenet.load_params_npz(path)
+    x = images(channels)
+    ref = np.asarray(jlenet.score(jlenet.load_params_npz(
+        jlenet.default_params_path(channels)), jnp.asarray(x)))
+    net = lenet.params_from_numpy(params, device="cpu")
+    out = lenet.score(net, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-4)
+    assert out.dtype == np.float32 and out.shape == (6,)
+
+
+@pytest.mark.parametrize("variant", ["ccfff", "no_conv_relu"])
+def test_variants(variant):
+    key = jax.random.PRNGKey(1)
+    if variant == "ccfff":
+        params = jlenet.init_params_ccfff(key, 15)
+        conv_relu = True
+    else:
+        params = jlenet.init_params(key, 15)
+        conv_relu = False
+    x = images(15, seed=4)
+    ref = np.asarray(jlenet.forward(params, jnp.asarray(x),
+                                    conv_relu=conv_relu))
+    net = lenet.params_from_numpy({k: np.asarray(v) for k, v in params.items()},
+                                  device="cpu", conv_relu=conv_relu)
+    with torch.no_grad():
+        out = net(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-4, rtol=1e-5)
+
+
+def test_module_layout():
+    net = lenet.params_from_numpy(
+        lenet.load_params_npz(lenet.default_params_path(15)), device="cpu")
+    assert isinstance(net, torch.nn.Module) and not net.training
+    assert [fc.out_features for fc in net.fcs] == [500, 2]
+    assert net.conv1.weight.shape == (20, 15, 5, 5)
