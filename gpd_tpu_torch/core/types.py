@@ -173,3 +173,30 @@ class Grasps:
         fetches)."""
         return Grasps(**{f.name: getattr(self, f.name).cpu().numpy()
                          for f in dataclasses.fields(self)})
+
+    def to_host_list(self):
+        """The valid grasps as a list of dicts of host values (for printing
+        and CSV)."""
+        h = self.to_host()
+        return [dict(position=h.position[i], orientation=h.orientation[i],
+                     sample=h.sample[i], width=float(h.width[i]),
+                     score=float(h.score[i]), bottom=float(h.bottom[i]),
+                     top=float(h.top[i]), center=float(h.center[i]),
+                     finger_placement=int(h.finger_placement[i]),
+                     full_antipodal=bool(h.full_antipodal[i]),
+                     half_antipodal=bool(h.half_antipodal[i]))
+                for i in np.nonzero(h.valid)[0]]
+
+
+def write_grasps_csv(path: str, grasps: Grasps) -> None:
+    """CSV export with Hand::writeHandsToFile's columns
+    (src/gpd/candidate/hand.cpp:48-68): position, axis, approach, binormal,
+    grasp width, one valid grasp a row."""
+    rows = []
+    for g in grasps.to_host_list():
+        R = g["orientation"]
+        vals = list(g["position"]) + list(R[:, 2]) + list(R[:, 0]) + \
+            list(R[:, 1]) + [g["width"]]
+        rows.append(",".join(f"{v:.6f}" for v in vals))
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + ("\n" if rows else ""))

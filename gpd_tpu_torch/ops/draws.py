@@ -28,6 +28,19 @@ def subsample(generator: torch.Generator, pool: torch.Tensor,
     return torch.argsort(keys)[:num_samples]
 
 
+def ransac_triplets(generator: torch.Generator, mask: torch.Tensor,
+                    num_iters: int) -> torch.Tensor:
+    """(num_iters, 3) point indices drawn WITH replacement, uniformly from
+    the True entries of ``mask`` (N,) (from all N when none is True): the
+    port of ``jax.random.choice(..., shape=(num_iters, 3), p=mask/sum)`` in
+    gpd_tpu/ops/preprocess.py:171."""
+    w = mask.to(torch.float32)
+    w = w + (~mask.any()).to(torch.float32)
+    idx = torch.multinomial(w.to(generator.device), 3 * num_iters,
+                            replacement=True, generator=generator)
+    return idx.to(mask.device).reshape(num_iters, 3)
+
+
 def shadow_noise(generator: torch.Generator, num_samples: int,
                  num_cameras: int, k: int, n_sp: int, v_cap: int,
                  device) -> Tuple[torch.Tensor, torch.Tensor]:

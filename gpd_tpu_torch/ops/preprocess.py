@@ -1,4 +1,4 @@
-"""Point-cloud preprocessing (port of gpd_tpu/ops/preprocess.py:21-98,199).
+"""Point-cloud preprocessing (port of gpd_tpu/ops/preprocess.py).
 
 Fixed-shape and mask-based like the JAX package: nothing changes a tensor's
 size on the device; compaction is a host step (``CloudArrays.compact_host``).
@@ -12,6 +12,7 @@ import torch
 
 from gpd_tpu_torch.core.types import PAD_COORD, CloudArrays
 from gpd_tpu_torch.ops import draws
+from gpd_tpu_torch.ops.neighbors import _dist2
 
 
 def _apply_mask(cloud: CloudArrays, mask: torch.Tensor) -> CloudArrays:
@@ -82,6 +83,69 @@ def voxelize(cloud: CloudArrays, cell_size: float) -> CloudArrays:
                                         cell_size)
     return CloudArrays(points=pts, normals=nrm, cam_source=cam, mask=mask,
                        view_points=cloud.view_points)
+
+
+def _outlier_mask(points, mask, mean_k: int, stddev_mult: float,
+                  block: int = 1024):
+    # Mean distance to the mean_k nearest neighbors (self excluded) from the
+    # values of a blocked distance matmul's exact k smallest: no index
+    # gather.
+    def mean_dist(bq, bm):
+        d2 = _dist2(bq, points)
+        d2 = torch.where(mask[None, :] & bm[:, None], d2, 1e12)
+        d2k = torch.topk(d2, mean_k + 1, dim=1, largest=False,
+                         sorted=True).values[:, 1:]     # [0] is self
+        v_k = d2k < 1e11
+        d_k = torch.sqrt(torch.clamp(d2k, min=0.0))
+        return torch.sum(torch.where(v_k, d_k, 0.0), dim=1) / \
+            torch.clamp(torch.sum(v_k, dim=1), min=1)
+
+    mean_d = torch.cat([mean_dist(points[i:i + block], mask[i:i + block])
+                        for i in range(0, points.shape[0], block)])
+    n = torch.clamp(mask.sum(), min=1)
+    mu = torch.sum(torch.where(mask, mean_d, 0.0)) / n
+    var = torch.sum(torch.where(mask, (mean_d - mu) ** 2, 0.0)) / n
+    return mask & (mean_d <= mu + stddev_mult * torch.sqrt(var))
+
+
+def remove_statistical_outliers(cloud: CloudArrays, mean_k: int = 50,
+                                stddev_mult: float = 1.0) -> CloudArrays:
+    """PCL StatisticalOutlierRemoval (cloud.cpp:166-174): drop points whose
+    mean distance to their mean_k nearest neighbors exceeds the global mean
+    + stddev_mult * stddev. Needs capacity > mean_k."""
+    return _apply_mask(cloud, _outlier_mask(cloud.points, cloud.mask, mean_k,
+                                            stddev_mult))
+
+
+def fit_plane_ransac(points: torch.Tensor, mask: torch.Tensor,
+                     generator: torch.Generator, dist_thresh: float = 0.01,
+                     num_iters: int = 128):
+    """RANSAC plane fit (pcl::SACSegmentation, cloud.cpp:407-435 and
+    image_generator.cpp:101-129): ``num_iters`` planes through point
+    triplets from ``draws.ransac_triplets``, all scored in one batched pass.
+    Returns (inlier mask (N,), plane (4,) = [n, d] with n.x + d = 0) of the
+    plane with the most inliers; degenerate triplets score -1."""
+    trip = draws.ransac_triplets(generator, mask, num_iters)
+    p0, p1, p2 = (points[trip[:, i]] for i in range(3))
+    nvec = torch.linalg.cross(p1 - p0, p2 - p0)
+    nlen = torch.linalg.norm(nvec, dim=1, keepdim=True)
+    nvec = nvec / torch.clamp(nlen, min=1e-12)
+    d = -torch.sum(nvec * p0, dim=1)
+    dist = torch.abs(points @ nvec.T + d[None, :]).T        # (iters, N)
+    inl = (dist <= dist_thresh) & mask[None, :]
+    scores = torch.where(nlen[:, 0] < 1e-9, -1, inl.sum(dim=1))
+    best = torch.argmax(scores)
+    return inl[best], torch.cat([nvec[best], d[best][None]])
+
+
+def sample_above_plane(cloud: CloudArrays, generator: torch.Generator,
+                       dist_thresh: float = 0.01) -> torch.Tensor:
+    """Mask of the points off the dominant plane (cloud.cpp:407-435); the
+    whole cloud when the fit leaves nothing, as the reference does."""
+    inliers, _ = fit_plane_ransac(cloud.points, cloud.mask, generator,
+                                  dist_thresh)
+    above = cloud.mask & ~inliers
+    return torch.where(above.any(), above, cloud.mask)
 
 
 def subsample_uniform(generator: torch.Generator, candidate_mask: torch.Tensor,

@@ -1,8 +1,8 @@
 """The whole slice, gpd_tpu_torch.detector against gpd_tpu.detector on the
 CPU, and properties of the port itself.
 
-The slice: GraspDetector.preprocess_cloud + detect of both packages, on two
-two-camera scenes.
+The slice: GraspDetector.preprocess_cloud + detect of both packages, on
+two-camera scenes, at 15, 3 and 1 channels.
 
   - Scanned rods on a table: the voxelized clouds must be identical; detect
     then runs on gpd_tpu's preprocessed cloud in both packages, because the
@@ -15,11 +15,15 @@ two-camera scenes.
     neighborhoods).
 
 Both detects get the same sample positions (taken where gpd_tpu's local
-frame is defined), gpd_tpu's shadow draws injected through
-gpd_tpu_torch.ops.draws and the packaged 15-channel weights. gpd_tpu runs
-its bfloat16 channel-major route (the Pallas raster in interpret mode). The
-selected grasps must be the same set, positions within 1e-5 and scores
-within 1e-3.
+frame is defined), gpd_tpu's draws injected through
+gpd_tpu_torch.ops.draws, and the same weights (the packaged 15- and
+3-channel checkpoints; one random-init dict at 1 channel). gpd_tpu runs its
+accelerator routes, the Pallas rasters in interpret mode. The selected
+grasps must be the same set, positions within 1e-5 and scores within 1e-3.
+
+The preprocessing options (statistical outliers, RANSAC plane fits,
+sampling above the plane, plane removal before the images) and the serving
+capacity buckets are held against gpd_tpu the same way.
 """
 
 import dataclasses
@@ -36,12 +40,17 @@ import torch
 
 import gpd_tpu.detector as jdet
 import gpd_tpu.ops.images as jimg
+import gpd_tpu.ops.preprocess as jpp
 from gpd_tpu.config import DetectorConfig as JConfig
+from gpd_tpu.config import ImageGeometry as JImageGeometry
+from gpd_tpu.core.types import CloudArrays as JCloud
+from gpd_tpu.net import lenet as jlenet
 from gpd_tpu_torch import detector as tdet
-from gpd_tpu_torch.config import DetectorConfig
+from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import draws
+from gpd_tpu_torch.ops import preprocess as tpp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,6 +76,22 @@ def inject(key):
         draws, "shadow_noise",
         lambda gen, S, V, K, n_sp, v_cap, device: jax_noise(
             key, S, V, K, n_sp, v_cap))
+
+
+@jax.jit
+def _jax_triplets(key, mask):
+    """fit_plane_ransac's draw (gpd_tpu/ops/preprocess.py:169-171)."""
+    probs = mask.astype(jnp.float32)
+    probs = probs / jnp.maximum(jnp.sum(probs), 1.0)
+    return jax.random.choice(key, mask.shape[0], shape=(128, 3), p=probs)
+
+
+def inject_triplets(key):
+    """draws.ransac_triplets returns gpd_tpu's triplets for ``key``."""
+    return mock.patch.object(
+        draws, "ransac_triplets",
+        lambda gen, mask, num_iters: T(_jax_triplets(
+            key, jnp.asarray(mask.numpy()))).long())
 
 
 def frame_gap_ok(jcloud, spos, radius, min_gap=0.05):
@@ -334,7 +359,8 @@ def test_active_sample_blocked_descriptor_inputs():
     out_j = jdet._descriptor_inputs(jc, g, spos, smask, key, cfg_j,
                                     canonical=True)
     noise = jax_noise(key, 600, 2, *tdet._shadow_shape(port_cloud(jc), cfg_t))
-    out_t = tdet._descriptor_inputs(port_cloud(jc), port_grasps(g), T(spos),
+    tc = port_cloud(jc)
+    out_t = tdet._descriptor_inputs(tc, tc.mask, port_grasps(g), T(spos),
                                     T(smask), noise, cfg_t)
     nn_j, nv_j, sp_j, sv_j, sid_j = map(np.asarray, out_j)
     nn_t, nv_t, sp_t, sv_t, sid_t = (a.numpy() for a in out_t)
@@ -347,7 +373,13 @@ def test_active_sample_blocked_descriptor_inputs():
 
 
 def test_imports_neither_jax_nor_gpd_tpu():
-    code = ("import sys; import gpd_tpu_torch.detector; "
+    """Every module of the port, io/ and apps/ included."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import gpd_tpu_torch\n"
+            "for m in pkgutil.walk_packages(gpd_tpu_torch.__path__,\n"
+            "                               'gpd_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'gpd_tpu_torch.apps.detect_grasps' in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gpd_tpu')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -363,6 +395,8 @@ def test_every_module_imports_without_triton_or_nvcc():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    gpd_tpu_torch.__path__, 'gpd_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert {'gpd_tpu_torch.io.pcd', 'gpd_tpu_torch.apps.detect_grasps',\n"
+        "        'gpd_tpu_torch.ops.images'} <= set(names), names\n"
         "from gpd_tpu_torch.ops import _build\n"
         "try:\n"
         "    _build.nvcc()\n"
@@ -374,7 +408,7 @@ def test_every_module_imports_without_triton_or_nvcc():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 14
+    assert int(r.stdout.split()[-1]) >= 19
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -388,13 +422,158 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert next(det.net.parameters()).device.type == "cpu"
 
 
-def test_unported_options_raise():
-    pts = np.random.default_rng(0).normal(size=(300, 3)).astype(np.float32)
-    for kw in (dict(remove_outliers=True),):
-        det = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
-        with pytest.raises(NotImplementedError):
-            det.preprocess_cloud(pts)
-    det = tdet.GraspDetector(DetectorConfig(sample_above_plane=True),
+def p0_params(channels):
+    """The packaged 3-channel checkpoint, or one random-init parameter dict
+    (gpd_tpu's init_params) as numpy arrays for 1 channel, which has no
+    packaged checkpoint."""
+    if channels == 3:
+        return None
+    return {k: np.asarray(v) for k, v in
+            jlenet.init_params(jax.random.PRNGKey(1), channels).items()}
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_whole_slice_at_p0_channels(channels):
+    """1 and 3 channels (projection P0, the raster_sums route) on the rod
+    scene, nearest-K image neighborhoods."""
+    p, cs, vp = rod_scene(2)
+    kw = dict(num_samples=64, image_neighbors_cap=256, num_selected=12)
+    params = p0_params(channels)
+    jd = jdet.GraspDetector(JConfig(
+        image_geometry=JImageGeometry(num_channels=channels), **kw),
+        params=params)
+    td = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels), **kw),
+        params=params, device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = port_cloud(jc)
+    assert td.effective_config(tc).image_neighbors_cap == 256 < tc.capacity
+    key = jax.random.PRNGKey(11)
+    spos, smask = sample_where_frames_defined(jd, jc, 64)
+    gj = jax_detect(jd, jc, spos, smask, key)
+    gt = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
+    assert td.last_counts["candidates"] >= 64    # clustering sees no -inf row
+    assert_same_selection(gj, gt)
+
+
+def test_whole_slice_with_plane_removed_before_images():
+    """remove_plane_before_image_calculation on the rod scene's table: the
+    image mask drops gpd_tpu's RANSAC plane (its triplets injected)."""
+    p, cs, vp = rod_scene(3)
+    kw = dict(num_samples=48, image_neighbors_cap=256, num_selected=12,
+              remove_plane_before_image_calculation=True)
+    jd = jdet.GraspDetector(JConfig(
+        image_geometry=JImageGeometry(num_channels=3), **kw))
+    td = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=3), **kw), device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = port_cloud(jc)
+    key = jax.random.PRNGKey(6)
+    inl, _ = jpp.fit_plane_ransac(jc.points, jc.mask,
+                                  jax.random.fold_in(key, 1))
+    assert 1000 < int(np.asarray(inl).sum()) < int(np.asarray(jc.mask).sum())
+    spos, smask = sample_where_frames_defined(jd, jc, 48)
+    gj = jax_detect(jd, jc, spos, smask, key)
+    with inject_triplets(jax.random.fold_in(key, 1)):
+        gt = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
+    assert td.last_counts["candidates"] >= 64
+    assert_same_selection(gj, gt)
+
+
+def test_no_packaged_checkpoint_asks_for_params():
+    cfg = DetectorConfig(image_geometry=ImageGeometry(num_channels=1))
+    with pytest.raises(FileNotFoundError, match="params"):
+        tdet.GraspDetector(cfg, device="cpu")
+    det = tdet.GraspDetector(cfg, params=p0_params(1), device="cpu")
+    assert det.net.conv1.in_channels == 1
+
+
+def test_serve_capacity_matches_gpd_tpu():
+    assert tdet._SERVE_BUCKETS == jdet._SERVE_BUCKETS
+    sizes = [0, 1, 2047, 2048, 2049, 5000, 8192, 8193, 65536, 131071,
+             131072, 131073, 150000, 300001]
+    assert [tdet.serve_capacity(n) for n in sizes] == \
+        [jdet.serve_capacity(n) for n in sizes]
+
+
+@pytest.mark.parametrize("remove_outliers", [False, True])
+def test_preprocess_serve_capacity_matches_gpd_tpu(remove_outliers):
+    """capacity="serve" (and outlier removal with its second compaction):
+    the same capacity, points and mask as gpd_tpu's."""
+    p, cs, vp = rod_scene(5)
+    kw = dict(remove_outliers=remove_outliers)
+    jc = jdet.GraspDetector(JConfig(**kw), params={}).preprocess_cloud(
+        p, view_points=vp, cam_source=cs, capacity="serve")
+    tc = tdet.GraspDetector(DetectorConfig(**kw), device="cpu").preprocess_cloud(
+        p, view_points=vp, cam_source=cs, capacity="serve")
+    assert tc.capacity == jc.points.shape[0] == 4096
+    np.testing.assert_array_equal(np.asarray(jc.mask), tc.mask.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.points), tc.points.numpy())
+    n = int(tc.mask.sum())                # 2857 voxels, 2369 kept
+    assert n > 2048 and (n < 2500) == remove_outliers
+
+
+def scattered_cloud(seed, n=700):
+    """A table patch with two boxes and a sparse halo of stray points, as
+    a CloudArrays of both packages (capacity 1024)."""
+    rng = np.random.default_rng(seed)
+    table = np.c_[rng.uniform(-0.15, 0.15, (n, 2)), np.zeros(n)]
+    boxes = [rng.uniform([x, y, 0.0], [x + 0.04, y + 0.05, 0.08], (80, 3))
+             for x, y in ((-0.1, -0.05), (0.04, 0.02))]
+    halo = rng.uniform(-0.3, 0.3, (40, 3))
+    pts = np.concatenate([table, *boxes, halo]).astype(np.float32)
+    jc = JCloud.from_numpy(pts, capacity=1024)
+    return jc, port_cloud(jc)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_outlier_mask_matches_gpd_tpu(seed):
+    jc, tc = scattered_cloud(seed)
+    keep_j = np.asarray(jpp.remove_statistical_outliers(jc).mask)
+    keep_t = tpp.remove_statistical_outliers(tc).mask.numpy()
+    np.testing.assert_array_equal(keep_j, keep_t)
+    assert 0 < (tc.mask.numpy() & ~keep_t).sum() < 100
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ransac_plane_matches_gpd_tpu(seed):
+    jc, tc = scattered_cloud(seed)
+    key = jax.random.PRNGKey(seed)
+    inl_j, plane_j = jpp.fit_plane_ransac(jc.points, jc.mask, key)
+    with inject_triplets(key):
+        inl_t, plane_t = tpp.fit_plane_ransac(tc.points, tc.mask, None)
+    np.testing.assert_array_equal(np.asarray(inl_j), inl_t.numpy())
+    plane_j = np.asarray(plane_j)
+    sign = np.sign(plane_j[2] * plane_t[2].item())
+    np.testing.assert_allclose(plane_j, sign * plane_t.numpy(), atol=1e-6)
+    assert inl_t.sum() >= 650 and abs(plane_t[2]) > 0.99
+
+
+def test_sample_above_plane_matches_gpd_tpu():
+    jc, tc = scattered_cloud(2)
+    key = jax.random.PRNGKey(4)
+    above_j = np.asarray(jpp.sample_above_plane(jc, key))
+    with inject_triplets(key):
+        above_t = tpp.sample_above_plane(tc, None).numpy()
+    np.testing.assert_array_equal(above_j, above_t)
+    assert 150 < above_t.sum() < 300
+    # Nothing off the plane: the whole cloud, as the reference falls back.
+    flat = np.c_[np.random.default_rng(0).uniform(-0.1, 0.1, (300, 2)),
+                 np.zeros(300)].astype(np.float32)
+    jf = JCloud.from_numpy(flat)
+    with inject_triplets(key):
+        above_t = tpp.sample_above_plane(port_cloud(jf), None).numpy()
+    np.testing.assert_array_equal(np.asarray(jpp.sample_above_plane(jf, key)),
+                                  above_t)
+    np.testing.assert_array_equal(above_t, np.asarray(jf.mask))
+
+
+def test_sample_cloud_draws_above_the_plane():
+    """sample_above_plane through GraspDetector.sample_cloud: every valid
+    sample lies off the table."""
+    jc, tc = scattered_cloud(3)
+    det = tdet.GraspDetector(DetectorConfig(num_samples=64,
+                                            sample_above_plane=True),
                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        det.sample_cloud(det.preprocess_cloud(pts))
+    pos, valid = det.sample_cloud(tc, torch.Generator().manual_seed(0))
+    assert valid.all() and (pos[:, 2].abs() > 0.005).float().mean() > 0.95

@@ -1,14 +1,17 @@
 """gpd_tpu_torch's descriptors against gpd_tpu on the CPU: the raster
-blocks, shadows and grasp images.
+sums, shadows and grasp images.
 
   - raster_blocks_ref against gpd_tpu's Pallas kernel _raster_blocks_pallas
     run with interpret=True: counts identical, values within 1e-5;
+  - raster_sums_ref / raster_sums2_ref against _raster_sums_pallas /
+    _raster_sums_pallas2 in interpret mode, the same tolerances;
   - compute_shadows with JAX's own draws: shadow_valid identical, points
     within 1e-6;
-  - make_images against gpd_tpu's float32 CPU route: the port's values
-    enter the raster in bfloat16, so the repo's own bf16 gate applies
-    (tools/check_raster_tpu.py:100-105): under 0.5% of uint8 pixels off by
-    more than one step.
+  - make_images against gpd_tpu's make_images: at 12/15 channels against
+    its float32 CPU route (the port's values enter the raster in bfloat16),
+    at 1/3 channels against its Pallas route in interpret mode (both
+    float32). The repo's own gate applies (tools/check_raster_tpu.py:100-105):
+    under 0.5% of uint8 pixels off by more than one step.
 """
 
 import dataclasses
@@ -85,6 +88,50 @@ class TestRasterBlocks:
         np.testing.assert_allclose(out, ref, atol=1e-5)
         assert out[:, counts].sum() > 0
         assert not out[:, :, SIZE:, :].any() and not out[:, :, :, SIZE:].any()
+
+
+def sums_operands(rng, G, K, Cp, n_rows=1):
+    """Row sets, columns and pre-masked values with the count last, as
+    scatter_mean builds them: ~60% of entries in the image, the rest on the
+    sentinel (a few with only one index on it)."""
+    inside = rng.random((G, K)) < 0.6
+    rows = [np.where(inside, rng.integers(0, SIZE, (G, K)), SIZE)
+            for _ in range(n_rows)]
+    cols = np.where(inside | (rng.random((G, K)) < 0.1),
+                    rng.integers(0, SIZE, (G, K)), SIZE)
+    m = inside.astype(np.float32)[..., None]
+    aug = np.concatenate([rng.random((G, K, Cp - 1)) * m, m], -1)
+    return ([r.astype(np.int32) for r in rows], cols.astype(np.int32),
+            aug.astype(np.float32))
+
+
+class TestRasterSums:
+    @pytest.mark.parametrize("Cp", [4, 2])
+    def test_ref_matches_pallas_interpret(self, Cp):
+        (rows,), cols, aug = sums_operands(np.random.default_rng(Cp), 4, 300,
+                                           Cp)
+        with mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg._raster_sums_pallas(
+                jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(aug), SIZE))
+        out = img.raster_sums_ref(T(rows), T(cols), T(aug), SIZE).numpy()
+        assert out.shape == ref.shape == (4, SIZE, SIZE, Cp)
+        np.testing.assert_array_equal(out[..., -1], ref[..., -1])
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+        assert out[..., -1].sum() > 0
+
+    @pytest.mark.parametrize("Cp", [6, 3])
+    def test_two_row_sets_match_pallas2_interpret(self, Cp):
+        (ra, rb), cols, aug = sums_operands(np.random.default_rng(Cp), 4, 300,
+                                            Cp, n_rows=2)
+        with mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg._raster_sums_pallas2(
+                jnp.asarray(ra), jnp.asarray(rb), jnp.asarray(cols),
+                jnp.asarray(aug), SIZE))
+        out = img.raster_sums2_ref(T(ra), T(rb), T(cols), T(aug), SIZE).numpy()
+        assert out.shape == ref.shape == (4, 2, SIZE, SIZE, Cp)
+        np.testing.assert_array_equal(out[..., -1], ref[..., -1])
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+        assert not np.array_equal(out[:, 0], out[:, 1])
 
 
 class TestShadows:
@@ -174,10 +221,46 @@ def test_make_images_matches_f32_route(hands, channels, cap):
     assert np.asarray(g.valid).sum() > 0 and out.any()
 
 
-def test_other_channel_counts_not_ported():
-    with pytest.raises(NotImplementedError):
-        z = torch.zeros((1, 3))
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("cap", [1 << 20, 256])
+def test_make_images_p0_matches_pallas_route(hands, channels, cap):
+    """1 and 3 channels: gpd_tpu's _scatter_mean route with its Pallas
+    kernel (_use_pallas patched on, interpret mode) on the same hands."""
+    jc, g, (nn_idx, nn_valid, _, _), cfg = hands[cap]
+    sid = np.asarray(g.sample_id)
+    h_nvalid = np.asarray(nn_valid)[sid] & np.asarray(g.valid)[:, None]
+    if nn_idx is None:
+        h_pts, h_nrm = np.asarray(jc.points), np.asarray(jc.normals)
+    else:
+        h_idx = np.asarray(nn_idx)[sid]
+        h_pts = np.asarray(jc.points)[h_idx]
+        h_nrm = np.asarray(jc.normals)[h_idx]
+    hand = [np.asarray(a) for a in (g.orientation, g.sample, g.bottom,
+                                    g.center, g.valid)]
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jimg, "_use_pallas", lambda: True), \
+                mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg.make_images(
+                jnp.asarray(h_pts), jnp.asarray(h_nrm), jnp.asarray(h_nvalid),
+                *map(jnp.asarray, hand), JImageGeometry(num_channels=channels)))
+    finally:
+        jax.clear_caches()
+    before = img.raster_sums.launches
+    out = img.make_images(T(h_pts), T(h_nrm), T(h_nvalid), *map(T, hand),
+                          ImageGeometry(num_channels=channels)).numpy()
+    assert img.raster_sums.launches == before      # no kernel on the CPU
+    assert out.shape == ref.shape == (128, SIZE, SIZE, channels)
+    assert out.dtype == np.uint8
+    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+    assert (diff > 1).mean() < 5e-3, (diff > 1).mean()
+    assert np.asarray(g.valid).sum() > 0 and out.any()
+
+
+def test_unknown_channel_count_raises():
+    z = torch.zeros((1, 3))
+    with pytest.raises(ValueError):
         img.make_images(z, z, torch.zeros((1, 1), dtype=torch.bool),
                         torch.eye(3)[None], z, torch.zeros(1), torch.zeros(1),
                         torch.ones(1, dtype=torch.bool),
-                        ImageGeometry(num_channels=3))
+                        ImageGeometry(num_channels=4))

@@ -22,6 +22,18 @@ def raster_operands(rng, G, K, nval):
     return torch.from_numpy(idx), torch.from_numpy(vals).to(torch.bfloat16)
 
 
+def sums_operands(rng, G, K, Cp):
+    """Two row sets, columns and pre-masked values with the count last;
+    ~60% of entries in the image, the rest on the sentinel."""
+    inside = rng.random((G, K)) < 0.6
+    ra, rb, cols = (np.where(inside, rng.integers(0, SIZE, (G, K)), SIZE)
+                    .astype(np.int32) for _ in range(3))
+    m = inside.astype(np.float32)[..., None]
+    aug = np.concatenate([rng.random((G, K, Cp - 1)) * m, m], -1)
+    return [torch.from_numpy(a) for a in (ra, rb, cols,
+                                          aug.astype(np.float32))]
+
+
 def test_raster_wrapper_checks_and_cpu_dispatch():
     mi, mv = raster_operands(np.random.default_rng(3), 2, 128, 6)
     before = img.raster_blocks.launches
@@ -39,6 +51,57 @@ def test_raster_wrapper_checks_and_cpu_dispatch():
                           size=SIZE)
     with pytest.raises(ValueError):
         img.raster_blocks(mi, mv, size=200)          # planes exceed smem
+
+
+@pytest.mark.parametrize("two", [False, True])
+def test_sums_wrapper_checks_and_cpu_dispatch(two):
+    ra, rb, cols, aug = sums_operands(np.random.default_rng(5), 3, 200, 4)
+    rows = (ra, rb) if two else (ra,)
+    fn = img.raster_sums2 if two else img.raster_sums
+    ref = img.raster_sums2_ref if two else img.raster_sums_ref
+
+    def call(cols=cols, aug=aug, size=SIZE):
+        return fn(*rows, cols, aug, size)
+    before = fn.launches
+    out = call()
+    assert torch.equal(out, ref(*rows, cols, aug, SIZE))
+    assert out.shape == ((3, 2, SIZE, SIZE, 4) if two else (3, SIZE, SIZE, 4))
+    assert fn.launches == before                    # no kernel on the CPU
+    with pytest.raises(ValueError):                 # dtype
+        call(aug=aug.double())
+    with pytest.raises(ValueError):
+        call(cols=cols.long())
+    with pytest.raises(ValueError):                 # shape
+        call(cols=cols[:, :100])
+    with pytest.raises(ValueError):
+        call(aug=aug[..., :0].contiguous())
+    with pytest.raises(ValueError):                 # contiguity
+        call(aug=aug.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):                 # one device
+        call(aug=aug.to("meta"))
+    with pytest.raises(ValueError):                 # shared memory
+        call(size=130 if two else 200)
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("Cp", [2, 4, 6])
+def test_sums_kernel_matches_plain_version_on_card(two, Cp):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py runs it on the card)")
+    ra, rb, cols, aug = (t.cuda() for t in sums_operands(
+        np.random.default_rng(Cp), 64, 2048, Cp))
+    rows = (ra, rb) if two else (ra,)
+    fn = img.raster_sums2 if two else img.raster_sums
+    ref = img.raster_sums2_ref if two else img.raster_sums_ref
+    before = fn.launches
+    out = fn(*rows, cols, aug, SIZE)
+    expect = ref(*rows, cols, aug, SIZE)
+    assert fn.launches == before + 1
+    assert torch.equal(out[..., -1], expect[..., -1])
+    torch.testing.assert_close(out, expect, atol=1e-3, rtol=1e-5)
 
 
 @pytest.mark.cuda
