@@ -10,10 +10,14 @@ Phases; any failure exits non-zero and prints no result line:
      all started together, and prints their register and spill lines;
   3. kernels: each kernel against its plain version at the main paths'
      shapes, with its time, the plain version's, one library call's and
-     the bound: raster_blocks at 512 hands, 2048 points and 2048 shadow
-     points, with and without shadows; raster_sums at 512 hands, 2048
-     points, 60x60 cells, Cp = 4 and 2; raster_sums2 (two row sets) at
-     Cp = 6 and 3;
+     the bound (each timed call reads its inputs from HBM, not the L2):
+     raster_blocks at 512 hands, 2048 points and 2048 shadow points, with
+     and without shadows; raster_sums at 512 hands, 2048 points, 60x60
+     cells, Cp = 4 and 2; raster_sums2 (two row sets) at
+     Cp = 6 and 3; then raster_blocks and raster_sums at ragged shapes
+     (G 1, 133, 256; K 200, 2047, 3072; with and without shadows, Cp 2
+     and 4). Every check runs the kernel twice: counts exactly equal,
+     values within atol 1e-3 + rtol 1e-5;
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
      synthetic two-camera table scenes, one warm-up and 3 requests; then
@@ -25,7 +29,7 @@ Phases; any failure exits non-zero and prints no result line:
      packaged 3-channel weights and outlier removal, sampling above the
      plane and plane removal before the images all on; one warm-up, 3
      requests, a stage breakdown, and the detect_grasps CLI once with a
-     CSV output;
+     normals CSV and a CSV output;
   6. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
@@ -46,6 +50,14 @@ import numpy as np
 
 REQUESTS = 3
 KERNELS = ("raster_blocks", "raster_sums", "raster_sums2")
+# Ragged shapes for the persistent kernels: one hand, a hand count that
+# leaves blocks unequal runs of items, K short, not a multiple of 4, and
+# above 2048.
+RAGGED_G = (1, 133, 256)
+RAGGED_K = (200, 2047, 3072)
+# Device sleep before a timed run, so the host queues every launch first
+# and the events time the card, not the launch rate (~50 ms at 1.98 GHz).
+SLEEP_CYCLES = 100_000_000
 # The one camera of the 3-channel scenes: view_cameras' draw from this
 # seed, 44 degrees above the table.
 CAMERA_SEED = 1000
@@ -60,15 +72,28 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean milliseconds per call from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(torch, fn, args, iters=20, warmup=3):
+    """Mean milliseconds per call of fn(*args) from CUDA events around
+    `iters` calls queued behind a device sleep. The calls take turns over
+    copies of the tensors in `args`, enough copies that the others' bytes
+    fill the L2 cache twice between two uses of one: every call reads its
+    inputs from HBM, as the bytes bound assumes."""
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if isinstance(t, torch.Tensor))
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    copies = [tuple(args)] + [
+        tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+        for _ in range(-(-2 * l2 // max(nbytes, 1)))]
+    for i in range(warmup):
+        fn(*copies[i % len(copies)])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*copies[i % len(copies)])
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -90,6 +115,39 @@ def raster_operands(torch, gen, G, Km, Ks, size):
     return midx, mvals, sidx, svals
 
 
+def hold(torch, name, run, ref, counts):
+    """Runs a kernel twice against its plain version's output ``ref``:
+    counts (the index list ``counts`` of dim 1, or the last channel)
+    exactly equal, values within the tolerance. Returns the max |diff|."""
+    err = 0.0
+    for _ in range(2):
+        out = run()
+        torch.cuda.synchronize()
+        pick = ((lambda t: t[:, counts]) if counts is not None
+                else (lambda t: t[..., -1]))
+        if not torch.equal(pick(out), pick(ref)):
+            fail(f"{name}: counts differ")
+        # Atomics add in a run-dependent order: the tolerance covers f32
+        # reordering of at most 3072 terms a cell.
+        if not torch.allclose(out, ref, atol=1e-3, rtol=1e-5):
+            fail(f"{name}: values differ")
+        err = max(err, float((out - ref).abs().max()))
+    return err
+
+
+def raster_counts(with_shadow):
+    return [4, 9, 14] + ([16, 18, 20] if with_shadow else [])
+
+
+def bound(nbytes, n_ops):
+    """(bound ms, bound_by): bytes at the HBM rate against f32 adds at the
+    f32 rate, the larger."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def check_raster(torch, img):
     """raster_blocks against raster_blocks_ref; returns the kernels-line
     entry for the with-shadow (main path) shapes."""
@@ -100,58 +158,70 @@ def check_raster(torch, img):
     for with_shadow in (True, False):
         args = ((midx, mvals, sidx, svals) if with_shadow
                 else (midx, mvals, None, None))
-        out = img.raster_blocks(*args, size)
         ref = img.raster_blocks_ref(*args, size)
-        torch.cuda.synchronize()
-        nb = out.shape[1]
-        counts = [4, 9, 14] + ([16, 18, 20] if with_shadow else [])
-        values = [b for b in range(nb) if b not in counts]
-        if not torch.equal(out[:, counts], ref[:, counts]):
-            fail(f"raster_blocks counts differ (shadows={with_shadow})")
-        # Atomics add in a run-dependent order: the tolerance covers f32
-        # reordering of at most 2048 bf16 terms a cell.
-        if not torch.allclose(out[:, values], ref[:, values],
-                              atol=1e-3, rtol=1e-5):
-            fail(f"raster_blocks values differ (shadows={with_shadow})")
-        err = float((out - ref).abs().max())
+        err = hold(torch, f"raster_blocks (shadows={with_shadow})",
+                   lambda: img.raster_blocks(*args, size), ref,
+                   raster_counts(with_shadow))
         max_err = max(max_err, err)
+        nb = ref.shape[1]
         print(f"raster_blocks shadows={with_shadow}: G={G} Km={K} "
               f"Ks={K if with_shadow else 0} NB={nb} max_abs_err={err:.3e}")
         if not with_shadow:
             continue
 
-        ms = cuda_ms(torch, lambda: img.raster_blocks(*args, size))
-        plain_ms = cuda_ms(torch, lambda: img.raster_blocks_ref(*args, size))
+        ms = cuda_ms(torch, lambda *a: img.raster_blocks(*a, size), args)
+        plain_ms = cuda_ms(torch, lambda *a: img.raster_blocks_ref(*a, size),
+                           args)
         # Library yardstick: one index_put_(accumulate=True) on flat
         # indices precomputed from the same operands (never used by the
         # port), into a zeroed output.
         flat, vals = flat_contributions(torch, img, midx, mvals, sidx, svals,
                                         size, nb)
-        lib_out = torch.zeros(out.numel(), device="cuda")
+        lib_out = torch.zeros(ref.numel(), device="cuda")
 
-        def library():
+        def library(flat, vals):
             lib_out.zero_()
             lib_out.index_put_((flat,), vals, accumulate=True)
-        library_ms = cuda_ms(torch, library)
+        library_ms = cuda_ms(torch, library, (flat, vals))
         if not torch.allclose(lib_out.view_as(ref), ref, atol=1e-3, rtol=1e-5):
             fail("index_put_ yardstick disagrees with raster_blocks_ref")
         nbytes = sum(t.numel() * t.element_size()
-                     for t in (midx, mvals, sidx, svals, out))
+                     for t in (midx, mvals, sidx, svals, ref))
         n_ops = int(vals.numel())          # one f32 add per contribution
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, n_ops)
         print(f"raster_blocks timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_put_ {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f}"
-              f" ms ({nbytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M adds)")
+              f"index_put_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M adds); "
+              f"ms / bound_ms = {ms / bound_ms:.2f}")
         entry = dict(name="raster_blocks", route="cuda",
                      source="gpd_tpu_torch/csrc/raster_blocks.cu",
                      replaces="gpd_tpu/ops/images.py:204",
-                     ms=ms, plain_ms=plain_ms,
-                     bound_ms=max(bytes_ms, ops_ms),
-                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                     library_ms=library_ms)
-    entry["max_abs_err"] = max_err
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms,
+                     bound_ratio=ms / bound_ms)
+    entry["max_abs_err"] = max(max_err, check_raster_ragged(torch, img))
     return entry
+
+
+def check_raster_ragged(torch, img):
+    """raster_blocks at the ragged shapes, Ks = K; returns the max |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err, n = 0.0, 0
+    for G in RAGGED_G:
+        for K in RAGGED_K:
+            midx, mvals, sidx, svals = raster_operands(torch, gen, G, K, K, 60)
+            for with_shadow in (True, False):
+                args = ((midx, mvals, sidx, svals) if with_shadow
+                        else (midx, mvals, None, None))
+                max_err = max(max_err, hold(
+                    torch, f"raster_blocks G={G} K={K} shadows={with_shadow}",
+                    lambda: img.raster_blocks(*args, 60),
+                    img.raster_blocks_ref(*args, 60),
+                    raster_counts(with_shadow)))
+                n += 1
+    print(f"raster_blocks ragged: {n} shapes (G {RAGGED_G}, K {RAGGED_K}, "
+          f"with and without shadows), each twice, max_abs_err={max_err:.3e}")
+    return max_err
 
 
 def flat_contributions(torch, img, midx, mvals, sidx, svals, size, nb):
@@ -206,8 +276,9 @@ def sums_flat(torch, rows, cols, aug, size):
 
 
 def check_sums(torch, img):
-    """raster_sums and raster_sums2 against their plain versions; returns
-    their kernels-line entries (timed at Cp = 4 and Cp = 6)."""
+    """raster_sums and raster_sums2 against their plain versions, each Cp
+    timed; returns their kernels-line entries (Cp = 4 and Cp = 6, the first
+    of each list)."""
     G, K, size = 512, 2048, 60
     gen = torch.Generator(device="cuda").manual_seed(1)
     entries = {}
@@ -218,57 +289,71 @@ def check_sums(torch, img):
         for Cp in cps:
             rows, cols, aug = sums_operands(torch, gen, G, K, Cp, n_rows, size)
             args = (*rows, cols, aug, size)
-            out, ref = fn(*args), plain(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(out[..., -1], ref[..., -1]):
-                fail(f"{name} counts differ (Cp={Cp})")
-            # Atomics add in a run-dependent order: the tolerance covers f32
-            # reordering of at most 2048 terms a cell.
-            if not torch.allclose(out, ref, atol=1e-3, rtol=1e-5):
-                fail(f"{name} values differ (Cp={Cp})")
-            err = float((out - ref).abs().max())
+            ref = plain(*args)
+            err = hold(torch, f"{name} (Cp={Cp})", lambda: fn(*args), ref,
+                       None)
             max_err = max(max_err, err)
             print(f"{name} Cp={Cp}: G={G} K={K} size={size} "
-                  f"output {tuple(out.shape)} max_abs_err={err:.3e}")
-            if Cp != cps[0]:
-                continue
-            ms = cuda_ms(torch, lambda: fn(*args))
-            plain_ms = cuda_ms(torch, lambda: plain(*args))
+                  f"output {tuple(ref.shape)} max_abs_err={err:.3e}")
+            ms = cuda_ms(torch, lambda *a: fn(*a, size), args[:-1])
+            plain_ms = cuda_ms(torch, lambda *a: plain(*a, size), args[:-1])
             # Library yardstick: one index_put_(accumulate=True) on flat
             # indices precomputed from the same operands (never used by the
             # port), into a zeroed output.
             flat, vals = sums_flat(torch, rows, cols, aug, size)
-            lib_out = torch.zeros(out.numel(), device="cuda")
+            lib_out = torch.zeros(ref.numel(), device="cuda")
 
-            def library():
+            def library(flat, vals):
                 lib_out.zero_()
                 lib_out.index_put_((flat,), vals, accumulate=True)
-            library_ms = cuda_ms(torch, library)
+            library_ms = cuda_ms(torch, library, (flat, vals))
             if not torch.allclose(lib_out.view_as(ref), ref, atol=1e-3,
                                   rtol=1e-5):
                 fail(f"index_put_ yardstick disagrees with {name}_ref")
             nbytes = sum(t.numel() * t.element_size()
-                         for t in (*rows, cols, aug, out))
+                         for t in (*rows, cols, aug, ref))
             n_ops = int(vals.numel())      # one f32 add per contribution
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
+            bound_ms, bound_by = bound(nbytes, n_ops)
             print(f"{name} timing (Cp={Cp}): {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, bound "
-                  f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB, "
-                  f"{n_ops / 1e6:.2f} M adds)")
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{n_ops / 1e6:.2f} M adds); ms / bound_ms = "
+                  f"{ms / bound_ms:.2f}")
+            if Cp != cps[0]:
+                continue
             entries[name] = dict(
                 name=name, route="cuda",
                 source="gpd_tpu_torch/csrc/raster_sums.cu",
                 replaces=("gpd_tpu/ops/images.py:53" if n_rows == 1
                           else "gpd_tpu/ops/images.py:136"),
-                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                bound_ratio=ms / bound_ms)
         entries[name]["max_abs_err"] = max_err
+    entries["raster_sums"]["max_abs_err"] = max(
+        entries["raster_sums"]["max_abs_err"], check_sums_ragged(torch, img))
     entries["raster_sums2"]["note"] = (
         "no detection path calls it (nor gpd_tpu's); launched here only "
         "against its plain version")
     return entries
+
+
+def check_sums_ragged(torch, img):
+    """raster_sums at the ragged shapes; returns the max |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err, n = 0.0, 0
+    for G in RAGGED_G:
+        for K in RAGGED_K:
+            for Cp in (2, 4):
+                (rows,), cols, aug = sums_operands(torch, gen, G, K, Cp, 1, 60)
+                max_err = max(max_err, hold(
+                    torch, f"raster_sums G={G} K={K} Cp={Cp}",
+                    lambda: img.raster_sums(rows, cols, aug, 60),
+                    img.raster_sums_ref(rows, cols, aug, 60), None))
+                n += 1
+    print(f"raster_sums ragged: {n} shapes (G {RAGGED_G}, K {RAGGED_K}, "
+          f"Cp 2 and 4), each twice, max_abs_err={max_err:.3e}")
+    return max_err
 
 
 def scene(syn, seed):
@@ -382,14 +467,22 @@ def entry_point_3ch(torch, img, pcd, det, paths):
     return launches
 
 
-def cli_3ch(detect_grasps, path, cam, tmp):
-    """The detect_grasps CLI once, CONFIG PCD "" OUT_CSV, on the card."""
+def cli_3ch(detect_grasps, pcd, path, cam, tmp):
+    """The detect_grasps CLI once, CONFIG PCD NORMALS_CSV OUT_CSV, on the
+    card. The normals file has one comma-separated row per raw point (each
+    point's unit direction to the camera); with voxels on, the detector
+    estimates normals anew, as the reference does."""
     cfg = os.path.join(tmp, "three_channels.cfg")
     with open(cfg, "w") as f:
         f.write(CFG_3CH.format(x=cam[0, 0], y=cam[0, 1], z=cam[0, 2]))
+    pts = pcd.load_cloud_file(path)
+    nrm = cam[0][None, :] - pts
+    normals_csv = os.path.join(tmp, "normals.csv")
+    np.savetxt(normals_csv, nrm / np.linalg.norm(nrm, axis=1, keepdims=True),
+               delimiter=",")
     out_csv = os.path.join(tmp, "grasps.csv")
     t0 = time.perf_counter()
-    rc = detect_grasps.main([cfg, path, "", out_csv])
+    rc = detect_grasps.main([cfg, path, normals_csv, out_csv])
     if rc != 0:
         fail(f"detect_grasps returned {rc}")
     with open(out_csv) as f:
@@ -397,7 +490,7 @@ def cli_3ch(detect_grasps, path, cam, tmp):
     if not rows or any(len(r.split(",")) != 13 for r in rows):
         fail(f"detect_grasps wrote {len(rows)} CSV rows")
     print(f"detect_grasps CLI: exit 0 in {time.perf_counter() - t0:.3f} s, "
-          f"{len(rows)} CSV rows")
+          f"{len(pts)} normals read, {len(rows)} CSV rows")
 
 
 def reset_counts(img):
@@ -538,7 +631,7 @@ def main():
             pcd.load_cloud_file(paths[1]), view_points=cam,
             capacity="serve"), img.raster_sums,
             "3 channels, request 0 scene, preprocess includes the file read")
-        cli_3ch(detect_grasps, paths[1], cam, tmp)
+        cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
 
     reference_check(torch, syn, GraspDetector, detector,
                     DetectorConfig(num_samples=32), img.raster_blocks)
@@ -551,7 +644,8 @@ def main():
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_ratio")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **({"note": e["note"]} if "note" in e
                                        else {})}

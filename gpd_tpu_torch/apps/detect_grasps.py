@@ -5,9 +5,9 @@ The reference's ``detect_grasps`` app (src/detect_grasps.cpp):
 
     python -m gpd_tpu_torch.apps.detect_grasps CONFIG PCD [NORMALS_CSV] [OUT_CSV] [--staged]
 
-runs on the CUDA card. An empty NORMALS_CSV argument ("") means no normals
-file, so OUT_CSV can be given without one. ``--staged`` waits for the card
-after each stage and prints the reference's per-stage runtime report.
+runs on the CUDA card. A NORMALS_CSV argument, even an empty one, names a
+file that must exist, as in gpd_tpu. ``--staged`` waits for the card after
+each stage and prints the reference's per-stage runtime report.
 """
 
 import os
@@ -32,10 +32,10 @@ def main(argv=None, device=None):
         return -1
 
     config_filename, pcd_filename = argv[0], argv[1]
-    normals_filename = argv[2] if len(argv) > 2 and argv[2] else None
+    normals_filename = argv[2] if len(argv) > 2 else None
     # The reference's checkFileExists: a message and -1, not a traceback.
     files = [config_filename, pcd_filename]
-    if normals_filename:
+    if normals_filename is not None:
         files.append(normals_filename)
     for f in files:
         if not os.path.exists(f):
@@ -53,7 +53,7 @@ def main(argv=None, device=None):
     points = load_cloud_file(pcd_filename)
     print(f"Loaded point cloud with {points.shape[0]} points.")
     normals = None
-    if normals_filename:
+    if normals_filename is not None:
         normals = load_normals_csv(normals_filename)
         print(f"Loaded surface normals from file: {normals_filename}")
 

@@ -5,10 +5,9 @@
 // (gpd_tpu/ops/images.py:204, pallas_call at :319). That kernel builds row
 // and column one-hots of each hand's points and contracts
 // (row one-hot x value) against the column one-hot on the MXU. Here each
-// block is a shared-memory histogram instead: one thread block per
-// (hand, projection group) clears its 64x64 float planes, adds every point
-// of the hand into its cell with shared-memory atomics, and writes the
-// planes out whole.
+// (hand, projection group) is a work item whose planes are a histogram in
+// shared memory: the points are added into their cells with shared-memory
+// atomics and the planes go out whole.
 //
 // Layout (see gpd_tpu_torch/ops/images.py, raster_blocks):
 //   midx  (G, 4, Km) int32   [rows_u, rows_w, cols_v, cols_u], sentinel size
@@ -20,111 +19,284 @@
 // 5g; group 3 + s is shadow projection s with planes [depth, count] at
 // 15 + 2s. Rows and columns >= size stay exactly zero.
 //
-// Bound on an H100 SXM: the function moves ~229 MB per 512-hand chunk at
-// Km = Ks = 2048 with shadows, 176 MB of it the f32 output, so the least
-// time is ~68 us at 3.35 TB/s. The f32 additions are negligible: 15 for
-// each point and 6 for each shadow point that falls in the image, 13.2 M
-// when 60% of them do, 22 M at most. This simple design does nothing about
-// the output traffic yet: it writes all planes, zero tails included. A tensor-core one-hot contraction (wgmma)
-// with TMA loads, or fusing the mean/dilate/minmax epilogue so the planes
-// never reach device memory, is later work.
+// Bound on an H100 SXM: bytes. The function moves ~229 MB per 512-hand
+// chunk at Km = Ks = 2048 with shadows, 176 MB of it the f32 output, so the
+// least time is ~68 us at 3.35 TB/s. The f32 additions are negligible: 15
+// for each point and 6 for each shadow point that falls in the image,
+// 13.2 M when 60% of them do.
+//
+// Design, against what held the first version (one block per item, 80 KB
+// of shared memory each, clear -> add -> store in series) at 3.5x that
+// bound:
+//  - Persistent blocks: one 512-thread block per SM walks a contiguous run
+//    of the (hand, group) items in hand-major order, so a hand's six groups
+//    follow each other on one SM and re-read its rows from L2, not HBM. (A
+//    strided walk would pin each block to one group kind, since 132 SMs is
+//    a multiple of 6, and leave the main-group SMs 2.2x the bytes of the
+//    shadow ones.)
+//  - Two 80 KB histogram buffers: when an item is summed, one thread hands
+//    its planes (80 KB or 32 KB, contiguous in the output) to the copy
+//    engine as one cp.async.bulk store (bulk_store.cuh), and the block
+//    clears the other buffer and sums the next item while it drains, so
+//    the output stream, 77% of the bound's bytes, does not stop.
+//  - Wide loads one step ahead: a thread takes 4 points at a time (one
+//    16-byte load per index row, one 8-byte load per bf16 value row) and
+//    loads its next 4 points, in this item or the next, before it adds the
+//    current ones. K not a multiple of 4, or a misaligned operand, takes
+//    the same walk one point at a time with scalar loads.
+//  - What bounds it now is the additions, not the bytes. In the SASS
+//    (cuobjdump -sass), a shared-memory f32 atomicAdd is no native add but
+//    a loop: LDS, FADD, ATOMS.CAST.SPIN (compare-and-swap), branch back,
+//    one dependent chain per value. The count plane therefore takes a
+//    native integer atomic (ATOMS.POPC.INC), turned into floats in place
+//    before the store. Four value planes interleaved per cell, each point
+//    one 128-bit compare-and-swap and a transpose before the store, was
+//    measured slower and is not used. Times: PERF.md.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_store.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kMainPlanes = 5;
+// Dynamic shared memory one block may use on Hopper.
+constexpr int kMaxSmem = 232448;
 
-// Index row of the image rows and of the image columns per projection,
-// and the value row holding each projection's depth.
-__constant__ int kRowSel[3] = {0, 1, 1};
-__constant__ int kColSel[3] = {2, 2, 3};
-__constant__ int kMainDepth[3] = {5, 3, 4};    // mvals rows w, u, v
-__constant__ int kShadowDepth[3] = {2, 0, 1};  // svals rows w, u, v
+struct Operands {
+  const int* midx;
+  const uint16_t* mvals;  // bf16 bits
+  const int* sidx;
+  const uint16_t* svals;
+  float* out;
+  int Km, Ks, size, R, NB, groups, items;
+  bool vec_main, vec_shadow;  // 4-point loads are aligned
+};
 
-__global__ void __launch_bounds__(kThreads)
-raster_blocks_kernel(const int* __restrict__ midx,
-                     const __nv_bfloat16* __restrict__ mvals,
-                     const int* __restrict__ sidx,
-                     const __nv_bfloat16* __restrict__ svals,
-                     float* __restrict__ out, int Km, int Ks, int size, int R,
-                     int NB) {
-  extern __shared__ float4 smem4[];
-  float* hist = reinterpret_cast<float*>(smem4);
-  const int64_t g = blockIdx.x;
-  const bool shadow = blockIdx.y >= 3;
-  const int p = shadow ? blockIdx.y - 3 : blockIdx.y;
-  const int planes = shadow ? 2 : kMainPlanes;
-  const int plane = R * R;
+// One (hand, group) work item.
+struct Item {
+  const int* rows;
+  const int* cols;
+  const uint16_t* val[4];  // main: |n|x, |n|y, |n|z, depth; shadow: depth
+  float* out;
+  int units;  // 4-point units (vec) or points
+  bool shadow, vec;
+};
 
-  for (int i = threadIdx.x; i < planes * plane / 4; i += kThreads)
-    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
+__device__ __forceinline__ bool is_shadow(const Operands& op, int item) {
+  return item % op.groups >= 3;
+}
 
-  if (!shadow) {
-    const int* idx = midx + g * 4 * Km;
-    const int* rows = idx + kRowSel[p] * Km;
-    const int* cols = idx + kColSel[p] * Km;
-    const __nv_bfloat16* v = mvals + g * 6 * Km;
-    const __nv_bfloat16* depth = v + kMainDepth[p] * Km;
-    for (int k = threadIdx.x; k < Km; k += kThreads) {
-      const int r = rows[k], c = cols[k];
-      if ((unsigned)r < (unsigned)size && (unsigned)c < (unsigned)size) {
-        float* cell = hist + r * R + c;
-        atomicAdd(cell, __bfloat162float(v[k]));
-        atomicAdd(cell + plane, __bfloat162float(v[Km + k]));
-        atomicAdd(cell + 2 * plane, __bfloat162float(v[2 * Km + k]));
-        atomicAdd(cell + 3 * plane, __bfloat162float(depth[k]));
-        atomicAdd(cell + 4 * plane, 1.f);
-      }
-    }
+__device__ __forceinline__ Item item_at(const Operands& op, int item) {
+  const int64_t g = item / op.groups;
+  const int grp = item - static_cast<int>(g) * op.groups;
+  Item it;
+  it.shadow = grp >= 3;
+  const int p = it.shadow ? grp - 3 : grp;
+  // Projection p: image rows from index row 0 (P0) or 1, columns from index
+  // row 2 (P0, P1) or 3; depth is w, u, v (mvals rows 5, 3, 4; svals rows
+  // 2, 0, 1).
+  const int rsel = p == 0 ? 0 : 1;
+  const int csel = p == 2 ? 3 : 2;
+  const int K = it.shadow ? op.Ks : op.Km;
+  const int* idx = (it.shadow ? op.sidx : op.midx) + g * 4 * K;
+  it.rows = idx + rsel * K;
+  it.cols = idx + csel * K;
+  if (it.shadow) {
+    it.val[0] = op.svals + (g * 3 + (p == 0 ? 2 : p - 1)) * K;
+    it.val[1] = it.val[2] = it.val[3] = it.val[0];
   } else {
-    const int* idx = sidx + g * 4 * Ks;
-    const int* rows = idx + kRowSel[p] * Ks;
-    const int* cols = idx + kColSel[p] * Ks;
-    const __nv_bfloat16* depth = svals + g * 3 * Ks + kShadowDepth[p] * Ks;
-    for (int k = threadIdx.x; k < Ks; k += kThreads) {
-      const int r = rows[k], c = cols[k];
-      if ((unsigned)r < (unsigned)size && (unsigned)c < (unsigned)size) {
-        float* cell = hist + r * R + c;
-        atomicAdd(cell, __bfloat162float(depth[k]));
-        atomicAdd(cell + plane, 1.f);
+    const uint16_t* v = op.mvals + g * 6 * K;
+    it.val[0] = v;
+    it.val[1] = v + K;
+    it.val[2] = v + 2 * K;
+    it.val[3] = v + (p == 0 ? 5 : p + 2) * K;
+  }
+  it.vec = it.shadow ? op.vec_shadow : op.vec_main;
+  it.units = it.vec ? K / 4 : K;
+  const int first = it.shadow ? 15 + 2 * p : kMainPlanes * p;
+  it.out = op.out + (g * op.NB + first) * static_cast<int64_t>(op.R * op.R);
+  return it;
+}
+
+// Up to 4 points: cell indices and bf16 value bits (two per word).
+struct Unit {
+  int4 r, c;
+  uint2 v[4];
+};
+
+__device__ __forceinline__ void load(Unit& u, const Item& it, int k) {
+  const int nv = it.shadow ? 1 : 4;
+  if (it.vec) {
+    u.r = __ldg(reinterpret_cast<const int4*>(it.rows) + k);
+    u.c = __ldg(reinterpret_cast<const int4*>(it.cols) + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nv) u.v[j] = __ldg(reinterpret_cast<const uint2*>(it.val[j]) + k);
+  } else {
+    u.r.x = __ldg(it.rows + k);
+    u.c.x = __ldg(it.cols + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nv) u.v[j].x = __ldg(it.val[j] + k);
+  }
+}
+
+__device__ __forceinline__ int lane(const int4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// bf16 value of point i from its bits, exactly as a float.
+__device__ __forceinline__ float value(const uint2& v, int i) {
+  const uint32_t w = i < 2 ? v.x : v.y;
+  return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// Adds up to N points: value planes by f32 atomicAdd (a compare-and-swap
+// loop in shared memory on sm_90a), the count plane by a native integer
+// atomic; counts_to_float turns it into floats before the store.
+template <int N>
+__device__ __forceinline__ void add_points(float* hist, const Unit& u,
+                                           bool shadow, int size, int R) {
+  const int plane = R * R;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = lane(u.r, i), c = lane(u.c, i);
+    if ((unsigned)r < (unsigned)size && (unsigned)c < (unsigned)size) {
+      float* cell = hist + r * R + c;
+      if (shadow) {
+        atomicAdd(cell, value(u.v[0], i));
+        atomicAdd(reinterpret_cast<unsigned*>(cell + plane), 1u);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          atomicAdd(cell + j * plane, value(u.v[j], i));
+        atomicAdd(reinterpret_cast<unsigned*>(cell + 4 * plane), 1u);
       }
     }
   }
-  __syncthreads();
+}
 
-  // The group's planes are contiguous in the output; R is a multiple of 8,
-  // so every plane starts 16-byte aligned.
-  const int first = shadow ? 15 + 2 * p : kMainPlanes * p;
-  float4* o = reinterpret_cast<float4*>(out + (g * NB + first) * plane);
-  for (int i = threadIdx.x; i < planes * plane / 4; i += kThreads)
-    o[i] = smem4[i];
+// The block turns a finished count plane from integers into floats, in
+// place (exact: a cell holds at most K < 2^24 points).
+__device__ __forceinline__ void counts_to_float(float* count, int plane) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < plane; i += kThreads)
+    count[i] = static_cast<float>(__float_as_uint(count[i]));
+}
+
+// This thread's next (item j, unit u) after the current one, in the order
+// it works through its block's items.
+__device__ __forceinline__ void advance(const Operands& op, int first, int n,
+                                        int& j, int& u, Item& it) {
+  u += kThreads;
+  while (j < n && u >= it.units) {
+    u = threadIdx.x;
+    if (++j < n) it = item_at(op, first + j);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+raster_blocks_kernel(const Operands op, bool two_buffers) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int plane = op.R * op.R;
+  const int slot = kMainPlanes * plane;
+  const int first = static_cast<int>(
+      static_cast<int64_t>(op.items) * blockIdx.x / gridDim.x);
+  const int n = static_cast<int>(
+      static_cast<int64_t>(op.items) * (blockIdx.x + 1) / gridDim.x) - first;
+  if (n <= 0) return;
+
+  auto planes_of = [&](int j) {
+    return is_shadow(op, first + j) ? 2 : kMainPlanes;
+  };
+  // The walk: cur is loaded one step ahead of its additions.
+  int cj = 0, cu = static_cast<int>(threadIdx.x) - kThreads;
+  Item cit = item_at(op, first);
+  advance(op, first, n, cj, cu, cit);
+  Unit cur, nxt;
+  if (cj < n) load(cur, cit, cu);
+
+  bulk::clear(smem, planes_of(0) * plane / 4);
+  __syncthreads();
+  for (int j = 0; j < n; ++j) {
+    float* hist = smem + (two_buffers ? (j & 1) * slot : 0);
+    while (cj == j) {
+      int nj = cj, nu = cu;
+      Item nit = cit;
+      advance(op, first, n, nj, nu, nit);
+      if (nj < n) load(nxt, nit, nu);
+      if (cit.vec)
+        add_points<4>(hist, cur, cit.shadow, op.size, op.R);
+      else
+        add_points<1>(hist, cur, cit.shadow, op.size, op.R);
+      cur = nxt;
+      cj = nj;
+      cu = nu;
+      cit = nit;
+    }
+    const int planes = planes_of(j);
+    counts_to_float(hist + (planes - 1) * plane, plane);
+    const bool more = j + 1 < n;
+    float* next = !more ? nullptr
+                  : two_buffers ? smem + ((j + 1) & 1) * slot : hist;
+    bulk::finish_item(hist, item_at(op, first + j).out, planes * plane,
+                      true, two_buffers, next,
+                      more ? planes_of(j + 1) * plane / 4 : 0);
+  }
+  if (threadIdx.x == 0) bulk::wait_read_all();
+}
+
+bool aligned(const void* p, uintptr_t to) {
+  return (reinterpret_cast<uintptr_t>(p) & (to - 1)) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). Shadow
-// pointers are ignored when with_shadow is 0.
+// Launches on `stream`; returns a cudaError_t (0 on success). Shadow
+// pointers are ignored when with_shadow is 0. num_sms is the card's SM
+// count: the persistent grid is num_sms times the blocks that fit on one.
 int raster_blocks_launch(const void* midx, const void* mvals, const void* sidx,
                          const void* svals, void* out, int G, int Km, int Ks,
-                         int size, int with_shadow, void* stream) {
+                         int size, int with_shadow, int num_sms,
+                         void* stream) {
   const int R = ((size + 1 + 7) / 8) * 8;
-  const int NB = with_shadow ? 21 : 15;
-  const int smem = kMainPlanes * R * R * (int)sizeof(float);
+  const int slot_bytes = kMainPlanes * R * R * (int)sizeof(float);
+  const bool two = 2 * slot_bytes <= kMaxSmem;
+  const int smem = (two ? 2 : 1) * slot_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       raster_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (G == 0) return 0;
-  dim3 grid(G, with_shadow ? 6 : 3);
-  raster_blocks_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)midx, (const __nv_bfloat16*)mvals, (const int*)sidx,
-      (const __nv_bfloat16*)svals, (float*)out, Km, Ks, size, R, NB);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, raster_blocks_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+
+  Operands op;
+  op.midx = (const int*)midx;
+  op.mvals = (const uint16_t*)mvals;
+  op.sidx = (const int*)sidx;
+  op.svals = (const uint16_t*)svals;
+  op.out = (float*)out;
+  op.Km = Km;
+  op.Ks = Ks;
+  op.size = size;
+  op.R = R;
+  op.NB = with_shadow ? 21 : 15;
+  op.groups = with_shadow ? 6 : 3;
+  op.items = G * op.groups;
+  op.vec_main = Km % 4 == 0 && aligned(midx, 16) && aligned(mvals, 8);
+  op.vec_shadow = with_shadow && Ks % 4 == 0 && aligned(sidx, 16) &&
+                  aligned(svals, 8);
+  const int grid = op.items < num_sms * per_sm ? op.items : num_sms * per_sm;
+  raster_blocks_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(op, two);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,8 @@
 // (gpd_tpu/ops/images.py:53, pallas_call at :118) and _raster_sums_pallas2
 // (:136, pallas_call at :185). Those contract a row one-hot (R, K) against a
 // column-masked, channel-tiled value operand (size*Cp, K) on the MXU. Here
-// each hand is one thread block holding its histogram in dynamic shared
-// memory: the block clears it, adds every point's Cp values into its cell
-// with shared-memory atomics, and writes the histogram out whole.
+// each hand's histogram lives in dynamic shared memory and every point's Cp
+// values are added into their cell with shared-memory atomics.
 //
 // Layout (see gpd_tpu_torch/ops/images.py, raster_sums / raster_sums2):
 //   rows_a, rows_b, cols (G, K) int32   an entry whose row or column is
@@ -21,18 +20,51 @@
 // Bound on an H100 SXM: bytes. At G = 512, K = 2048, size 60 the function
 // moves 54.7 MB at Cp = 4 (29.5 MB of it the output) and 126 MB in the
 // two-row-set mode at Cp = 6, so ~16 us and ~38 us at 3.35 TB/s; at most
-// 4.2 M (8.4 M) f32 adds, which are negligible. This design reads each input
-// once and writes each output once; whether it reaches that bound is
-// measured by chip_smoke.py (PERF.md). A histogram takes size*size*Cp*4
-// bytes of shared memory (57.6 KB at Cp = 4, twice that per row set), so a
-// block opts in above 48 KB.
+// 4.2 M (8.4 M) f32 adds, which are negligible.
+//
+// One row set, Cp <= 8 (the detection path): the persistent design of
+// raster_blocks.cu. What held the first version (one block per hand, clear
+// -> add -> store in series) at 3.3x the bound was that at 57.6 KB of
+// shared memory a hand, 396 blocks ran at once, so 512 hands took 1.29
+// waves and the second ran 116 blocks on an otherwise idle card; and that
+// nothing overlapped a block's store with its loads. Now:
+//  - one 512-thread block per SM walks a contiguous run of hands, one
+//    hand's histogram at a time (splitting a hand into row bands, each its
+//    own work item, re-read the hand's points per band and measured
+//    slower: PERF.md, PR 3);
+//  - two histogram buffers: one thread hands a finished item to the copy
+//    engine as one cp.async.bulk store (bulk_store.cuh) while the block
+//    clears the other buffer and sums the next item;
+//  - a thread takes 4 points at a time, one 16-byte load for their rows,
+//    one for their columns and Cp for their 4*Cp values, and loads its next
+//    4 before it adds the current ones; at K = 2048 a thread has one unit
+//    a hand, so the look-ahead fetches the next hand's during this one's
+//    additions and store. Against a plain load-then-add walk, in one call
+//    on an H100 at 512 hands: 0.0257 against 0.0269 ms at Cp = 4 and
+//    0.0132 against 0.0158 ms at Cp = 2 (at 256 hands and Cp = 4 it lost
+//    4%: 0.0147 against 0.0141 ms; kernel_ab.py, PERF.md). K not a
+//    multiple of 4, or a misaligned operand, takes the same walk one point
+//    at a time;
+//  - a shared-memory f32 atomicAdd compiles to a compare-and-swap loop
+//    (LDS, FADD, ATOMS.CAST.SPIN), one per channel. Where Cp is a multiple
+//    of 4 the cell is 16-byte aligned, and 4 channels take one 128-bit
+//    compare-and-swap loop (atom.shared.cas.b128, sm_90) instead.
+// The two-row-set mode (raster_sums2, on no detection path) and Cp > 8
+// keep the first design: one block per hand, in series. Times: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_store.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // first design
+constexpr int kPersistentThreads = 512;
+constexpr int kMaxCp = 8;
+constexpr int kMaxSmem = 232448;
+
+// ---- First design: one block per hand (two row sets, or Cp > 8). ----
 
 __device__ __forceinline__ void add_point(float* cell, const float* v,
                                           int Cp) {
@@ -93,23 +125,260 @@ raster_sums_kernel(const int* __restrict__ rows_a,
 using Kernel = void (*)(const int*, const int*, const int*, const float*,
                         float*, int, int, int);
 
+// ---- Persistent design: one row set, Cp <= 8. ----
+
+struct Operands {
+  const int* rows;
+  const int* cols;
+  const float* aug;
+  float* out;
+  int G, K, size;
+  bool vec;       // 4-point loads are aligned
+  bool use_bulk;  // a hand's output is a multiple of 16 bytes
+};
+
+// One work item: hand g's operands and output.
+struct Hand {
+  const int* rows;
+  const int* cols;
+  const float* aug;
+  float* out;
+};
+
+template <int CP>
+__device__ __forceinline__ Hand hand_at(const Operands& op, int64_t g) {
+  Hand h;
+  h.rows = op.rows + g * op.K;
+  h.cols = op.cols + g * op.K;
+  h.aug = op.aug + g * op.K * CP;
+  h.out = op.out + g * op.size * op.size * CP;
+  return h;
+}
+
+// Up to 4 points: rows, columns and their 4*CP values, point-major.
+template <int CP>
+struct Unit {
+  int4 r, c;
+  float4 a[CP];
+};
+
+__device__ __forceinline__ int lane(const int4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ float lane(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ void set_lane(float4& a, int i, float v) {
+  if (i == 0) a.x = v;
+  else if (i == 1) a.y = v;
+  else if (i == 2) a.z = v;
+  else a.w = v;
+}
+
+template <int CP>
+__device__ __forceinline__ void load(Unit<CP>& u, const Hand& h, bool vec,
+                                     int k) {
+  if (vec) {
+    u.r = __ldg(reinterpret_cast<const int4*>(h.rows) + k);
+    u.c = __ldg(reinterpret_cast<const int4*>(h.cols) + k);
+    // Points 4k..4k+3 hold 4*CP floats from float 4k*CP: 16-byte aligned.
+    const float4* a = reinterpret_cast<const float4*>(h.aug) + k * CP;
+#pragma unroll
+    for (int q = 0; q < CP; ++q) u.a[q] = __ldg(a + q);
+  } else {
+    u.r.x = __ldg(h.rows + k);
+    u.c.x = __ldg(h.cols + k);
+    const float* a = h.aug + static_cast<int64_t>(k) * CP;
+#pragma unroll
+    for (int q = 0; q < CP; ++q) set_lane(u.a[q / 4], q % 4, __ldg(a + q));
+  }
+}
+
+__device__ __forceinline__ uint64_t pack2(float a, float b) {
+  return static_cast<uint64_t>(__float_as_uint(a)) |
+         static_cast<uint64_t>(__float_as_uint(b)) << 32;
+}
+
+__device__ __forceinline__ float lo(uint64_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x));
+}
+
+__device__ __forceinline__ float hi(uint64_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x >> 32));
+}
+
+// cell[0..3] += v with one 128-bit compare-and-swap loop (sm_90).
+__device__ __forceinline__ void add4(float* cell, float4 v) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(cell));
+  const float4 first = *reinterpret_cast<const float4*>(cell);
+  uint64_t want_lo = pack2(first.x, first.y), want_hi = pack2(first.z, first.w);
+  while (true) {
+    const uint64_t new_lo = pack2(lo(want_lo) + v.x, hi(want_lo) + v.y);
+    const uint64_t new_hi = pack2(lo(want_hi) + v.z, hi(want_hi) + v.w);
+    uint64_t seen_lo, seen_hi;
+    asm volatile(
+        "{\n\t.reg .b128 d, b, c;\n\t"
+        "mov.b128 b, {%2, %3};\n\t"
+        "mov.b128 c, {%4, %5};\n\t"
+        "atom.shared.cas.b128 d, [%6], b, c;\n\t"
+        "mov.b128 {%0, %1}, d;\n\t}"
+        : "=l"(seen_lo), "=l"(seen_hi)
+        : "l"(want_lo), "l"(want_hi), "l"(new_lo), "l"(new_hi), "r"(s)
+        : "memory");
+    if (seen_lo == want_lo && seen_hi == want_hi) break;
+    want_lo = seen_lo;
+    want_hi = seen_hi;
+  }
+}
+
+// Adds up to N points' CP values into their cells: 4 channels per 128-bit
+// compare-and-swap where CP is a multiple of 4 (the cell is then 16-byte
+// aligned), else one f32 atomicAdd each.
+template <int CP, int N>
+__device__ __forceinline__ void add_points(float* hist, const Unit<CP>& u,
+                                           int size) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = lane(u.r, i), c = lane(u.c, i);
+    if ((unsigned)c < (unsigned)size && (unsigned)r < (unsigned)size) {
+      float* cell = hist + (r * size + c) * CP;
+      float v[CP];
+#pragma unroll
+      for (int j = 0; j < CP; ++j)
+        v[j] = lane(u.a[(i * CP + j) / 4], (i * CP + j) % 4);
+      if (CP % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < CP; q += 4)
+          add4(cell + q, make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < CP; ++j) atomicAdd(cell + j, v[j]);
+      }
+    }
+  }
+}
+
+template <int CP>
+__global__ void __launch_bounds__(kPersistentThreads)
+raster_sums_persistent(const Operands op, bool two_buffers) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int floats = op.size * op.size * CP;  // one hand's histogram
+  const int slot = (floats + 3) / 4 * 4;
+  const int first = static_cast<int>(
+      static_cast<int64_t>(op.G) * blockIdx.x / gridDim.x);
+  const int n = static_cast<int>(
+      static_cast<int64_t>(op.G) * (blockIdx.x + 1) / gridDim.x) - first;
+  if (n <= 0) return;
+  const int units = op.vec ? op.K / 4 : op.K;
+
+  // The walk over (hand j, unit u): cur is loaded one step ahead of its
+  // additions. Every hand has the same number of units.
+  int cj = units > static_cast<int>(threadIdx.x) ? 0 : n;
+  int cu = threadIdx.x;
+  Unit<CP> cur, nxt;
+  if (cj < n) load(cur, hand_at<CP>(op, first), op.vec, cu);
+
+  bulk::clear(smem, slot / 4);
+  __syncthreads();
+  for (int j = 0; j < n; ++j) {
+    float* hist = smem + (two_buffers ? (j & 1) * slot : 0);
+    const Hand h = hand_at<CP>(op, first + j);
+    while (cj == j) {
+      int nj = cj, nu = cu + kPersistentThreads;
+      if (nu >= units) {
+        nu = threadIdx.x;
+        ++nj;
+      }
+      if (nj < n) load(nxt, nj == j ? h : hand_at<CP>(op, first + nj), op.vec, nu);
+      if (op.vec)
+        add_points<CP, 4>(hist, cur, op.size);
+      else
+        add_points<CP, 1>(hist, cur, op.size);
+      cur = nxt;
+      cj = nj;
+      cu = nu;
+    }
+    const bool more = j + 1 < n;
+    float* next = !more ? nullptr
+                  : two_buffers ? smem + ((j + 1) & 1) * slot : hist;
+    bulk::finish_item(hist, h.out, floats, op.use_bulk, two_buffers, next,
+                      more ? slot / 4 : 0);
+  }
+  if (threadIdx.x == 0) bulk::wait_read_all();
+}
+
+bool aligned(const void* p, uintptr_t to) {
+  return (reinterpret_cast<uintptr_t>(p) & (to - 1)) == 0;
+}
+
+template <int CP>
+int launch_persistent(const void* rows, const void* cols, const void* aug,
+                      void* out, int G, int K, int size, int num_sms,
+                      cudaStream_t stream) {
+  Operands op;
+  op.rows = (const int*)rows;
+  op.cols = (const int*)cols;
+  op.aug = (const float*)aug;
+  op.out = (float*)out;
+  op.G = G;
+  op.K = K;
+  op.size = size;
+  op.vec = K % 4 == 0 && aligned(rows, 16) && aligned(cols, 16) &&
+           aligned(aug, 16);
+  op.use_bulk = (size * CP) % 4 == 0 && aligned(out, 16);
+  const int slot_bytes = (size * size * CP + 3) / 4 * 4 * (int)sizeof(float);
+  const bool two = 2 * slot_bytes <= kMaxSmem;
+  const int smem = (two ? 2 : 1) * slot_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      raster_sums_persistent<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (G == 0) return 0;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, raster_sums_persistent<CP>, kPersistentThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = G < num_sms * per_sm ? G : num_sms * per_sm;
+  raster_sums_persistent<CP>
+      <<<grid, kPersistentThreads, smem, stream>>>(op, two);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). rows_b
-// NULL selects the one-row-set mode.
+// Launches on `stream`; returns a cudaError_t (0 on success). rows_b NULL
+// selects the one-row-set mode, which for Cp <= 8 runs the persistent
+// kernel over a grid sized by num_sms, the card's SM count.
 int raster_sums_launch(const void* rows_a, const void* rows_b,
                        const void* cols, const void* aug, void* out, int G,
-                       int K, int Cp, int size, void* stream) {
+                       int K, int Cp, int size, int num_sms, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
   const bool two = rows_b != nullptr;
+  if (!two && Cp >= 1 && Cp <= kMaxCp) {
+    switch (Cp) {
+      case 1: return launch_persistent<1>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 2: return launch_persistent<2>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 3: return launch_persistent<3>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 4: return launch_persistent<4>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 5: return launch_persistent<5>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 6: return launch_persistent<6>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      case 7: return launch_persistent<7>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+      default: return launch_persistent<8>(rows_a, cols, aug, out, G, K, size, num_sms, s);
+    }
+  }
   const int smem = (two ? 2 : 1) * size * size * Cp * (int)sizeof(float);
   Kernel kernel = two ? raster_sums_kernel<true> : raster_sums_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (G == 0) return 0;
-  kernel<<<G, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<G, kThreads, smem, s>>>(
       (const int*)rows_a, (const int*)rows_b, (const int*)cols,
       (const float*)aug, (float*)out, K, Cp, size);
   return (int)cudaGetLastError();

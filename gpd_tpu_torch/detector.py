@@ -371,8 +371,9 @@ class GraspDetector:
 
     ``params`` is a gpd_tpu parameter dict of numpy arrays (see
     ``lenet.params_from_numpy``); by default the configured .npz weights,
-    else the packaged checkpoint. ``device`` defaults to CUDA and raises
-    without it."""
+    else the packaged checkpoint, else (as gpd_tpu, with its WARNING)
+    ``lenet.init_params`` from a generator seeded with 0. ``device``
+    defaults to CUDA and raises without it."""
 
     def __init__(self, config, params=None, device=None):
         if isinstance(config, str):
@@ -380,24 +381,29 @@ class GraspDetector:
         self.cfg: DetectorConfig = config
         self.device = resolve_device(device)
         if params is None:
-            path = self.cfg.weights_file
-            if not (path.endswith(".npz") and os.path.exists(path)):
-                default = lenet.default_params_path(
-                    self.cfg.image_geometry.num_channels)
-                if path:
-                    print(f"NOTE: weights_file {path!r} is not an .npz "
-                          f"checkpoint; using packaged checkpoint {default}.")
-                path = default
-            if not os.path.exists(path):
-                raise FileNotFoundError(
-                    f"no packaged checkpoint for "
-                    f"{self.cfg.image_geometry.num_channels}-channel images "
-                    f"({os.path.normpath(path)}); pass params= (a gpd_tpu "
-                    f"parameter dict of numpy arrays)")
-            params = lenet.load_params_npz(path)
+            params = self._default_params()
         self.net = lenet.params_from_numpy(params, self.device)
         self.last_runtimes = {}
         self.last_counts = {}
+
+    def _default_params(self):
+        """The configured .npz weights, else the packaged checkpoint, else
+        random init (gpd_tpu/detector.py:570-592)."""
+        ig = self.cfg.image_geometry
+        path = self.cfg.weights_file
+        if path.endswith(".npz") and os.path.exists(path):
+            return lenet.load_params_npz(path)
+        reason = (f"weights_file {path!r} is not an .npz checkpoint" if path
+                  else "no weights_file configured")
+        default = lenet.default_params_path(ig.num_channels)
+        if os.path.exists(default):
+            if path:
+                print(f"NOTE: {reason}; using packaged checkpoint {default}.")
+            return lenet.load_params_npz(default)
+        print(f"WARNING: could not load classifier weights ({reason}); "
+              f"using random initialization.")
+        return lenet.init_params(torch.Generator().manual_seed(0),
+                                 ig.num_channels, ig.size)
 
     def _generator(self, generator: Optional[torch.Generator]):
         if generator is not None:

@@ -93,6 +93,32 @@ def params_from_numpy(params: Dict[str, np.ndarray], device=None,
     return net.to(device).eval()
 
 
+def init_params(generator: torch.Generator, num_channels: int = 15,
+                image_size: int = 60) -> Dict[str, np.ndarray]:
+    """He-style random init of the LeNet tower (gpd_tpu/net/lenet.py:37-57):
+    the same names, shapes and scales, N(0, 2/fan_in) weights and zero
+    biases, drawn from ``generator`` (torch's numbers, not JAX's). Returns
+    float32 numpy arrays, as ``load_params_npz`` does."""
+    s = ((image_size - 4) // 2 - 4) // 2
+    flat = 50 * s * s
+
+    def he(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=generator.device)
+        return (w * np.sqrt(2.0 / fan_in)).cpu().numpy()
+
+    zeros = lambda n: np.zeros(n, np.float32)
+    return {
+        "conv1_w": he((20, num_channels, 5, 5), num_channels * 25),
+        "conv1_b": zeros(20),
+        "conv2_w": he((50, 20, 5, 5), 20 * 25),
+        "conv2_b": zeros(50),
+        "fc1_w": he((500, flat), flat),
+        "fc1_b": zeros(500),
+        "fc2_w": he((2, 500), 500),
+        "fc2_b": zeros(2),
+    }
+
+
 def load_params_npz(path: str) -> Dict[str, np.ndarray]:
     """gpd_tpu's npz checkpoints (possibly stored float16) as float32
     numpy arrays."""

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
 go to ``gpd_tpu_torch/_build/`` (ignored by git) under a name that carries
-a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.
+a hash of the source, the ``csrc/*.cuh`` headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -42,8 +42,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers in
+    csrc/ and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            digest.update(src.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

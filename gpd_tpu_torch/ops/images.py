@@ -24,6 +24,7 @@ shadow jitter comes from ``ops/draws.py`` rather than an unseeded LCG.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -269,12 +270,22 @@ def _check_operands(midx, mvals, sidx, svals, size: int):
         raise ValueError("raster operands must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("raster operands must be contiguous")
+    # One item's 5 planes must fit in a block's shared memory; the kernel
+    # keeps two items' (2 x 80 KB at size 60) where they fit, so one item's
+    # bulk store drains while the next is summed.
     if 5 * raster_rows(size) ** 2 * 4 > _build.MAX_DYNAMIC_SMEM:
         raise ValueError(f"image size {size} needs more shared memory than a "
                          "block has")
 
 
-_RASTER_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_RASTER_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    """The card's SM count, read once per device: the persistent kernels
+    size their grid by it."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
@@ -319,7 +330,8 @@ def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
         err = fn(midx.data_ptr(), mvals.data_ptr(),
                  sidx.data_ptr() if with_shadow else None,
                  svals.data_ptr() if with_shadow else None,
-                 out.data_ptr(), G, Km, Ks, size, int(with_shadow), stream)
+                 out.data_ptr(), G, Km, Ks, size, int(with_shadow),
+                 _num_sms(midx.device.index), stream)
     if err != 0:
         raise RuntimeError(f"raster_blocks launch failed: "
                            f"{_build.cuda_error_string(lib, err)}")
@@ -365,13 +377,17 @@ def _check_sums_operands(row_sets, cols, aug, size: int):
         raise ValueError("raster operands must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("raster operands must be contiguous")
+    # One hand's histogram set must fit in a block's shared memory; the
+    # one-row-set kernel keeps two hands' (2 x 57.6 KB at size 60, Cp = 4)
+    # where they fit, so one hand's bulk store drains while the next is
+    # summed.
     if len(row_sets) * size * size * aug.shape[2] * 4 > _build.MAX_DYNAMIC_SMEM:
         raise ValueError(f"{len(row_sets)} histogram(s) of {size}x{size}x"
                          f"{aug.shape[2]} need more shared memory than a "
                          "block has")
 
 
-_SUMS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SUMS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _launch_sums(row_sets, cols, aug, size: int):
@@ -392,7 +408,8 @@ def _launch_sums(row_sets, cols, aug, size: int):
         stream = torch.cuda.current_stream(cols.device).cuda_stream
         err = fn(row_sets[0].data_ptr(),
                  row_sets[1].data_ptr() if two else None, cols.data_ptr(),
-                 aug.data_ptr(), out.data_ptr(), G, K, Cp, size, stream)
+                 aug.data_ptr(), out.data_ptr(), G, K, Cp, size,
+                 _num_sms(cols.device.index), stream)
     if err != 0:
         raise RuntimeError(f"raster_sums launch failed: "
                            f"{_build.cuda_error_string(lib, err)}")

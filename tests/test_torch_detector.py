@@ -480,12 +480,35 @@ def test_whole_slice_with_plane_removed_before_images():
     assert_same_selection(gj, gt)
 
 
-def test_no_packaged_checkpoint_asks_for_params():
-    cfg = DetectorConfig(image_geometry=ImageGeometry(num_channels=1))
-    with pytest.raises(FileNotFoundError, match="params"):
-        tdet.GraspDetector(cfg, device="cpu")
+def test_no_packaged_checkpoint_asks_for_params(capsys):
+    """Without a checkpoint for the channel count (1 and 12 channels), the
+    detector warns as gpd_tpu does and falls back to random init; params=
+    still takes a given dict."""
+    for channels in (1, 12):
+        cfg = DetectorConfig(image_geometry=ImageGeometry(
+            num_channels=channels))
+        det = tdet.GraspDetector(cfg, device="cpu")
+        assert det.net.conv1.in_channels == channels
+        assert ("WARNING: could not load classifier weights (no weights_file "
+                "configured); using random initialization.") in \
+            capsys.readouterr().out
     det = tdet.GraspDetector(cfg, params=p0_params(1), device="cpu")
     assert det.net.conv1.in_channels == 1
+    assert "WARNING" not in capsys.readouterr().out
+
+
+def test_random_init_detector_runs_detect():
+    """A 1-channel GraspDetector built with no params (random init) runs
+    detect on a small scene and scores its hands with finite values."""
+    p, cs, vp = lattice_shell()
+    det = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=1), num_samples=16,
+        voxelize=False, normals_radius=0.008), device="cpu")
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    out = det.detect(cloud, generator=torch.Generator().manual_seed(0),
+                     verbose=False).to_host()
+    assert det.last_counts["selected"] > 0
+    assert np.all(np.isfinite(out.score[out.valid]))
 
 
 def test_serve_capacity_matches_gpd_tpu():

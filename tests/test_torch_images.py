@@ -2,9 +2,11 @@
 sums, shadows and grasp images.
 
   - raster_blocks_ref against gpd_tpu's Pallas kernel _raster_blocks_pallas
-    run with interpret=True: counts identical, values within 1e-5;
+    run with interpret=True: counts identical, values within 1e-5, also
+    for one hand at K = 200 and 2047;
   - raster_sums_ref / raster_sums2_ref against _raster_sums_pallas /
-    _raster_sums_pallas2 in interpret mode, the same tolerances;
+    _raster_sums_pallas2 in interpret mode, the same tolerances and ragged
+    shapes;
   - compute_shadows with JAX's own draws: shadow_valid identical, points
     within 1e-6;
   - make_images against gpd_tpu's make_images: at 12/15 channels against
@@ -90,6 +92,29 @@ class TestRasterBlocks:
         assert not out[:, :, SIZE:, :].any() and not out[:, :, :, SIZE:].any()
 
 
+    @pytest.mark.parametrize("K", [200, 2047])
+    @pytest.mark.parametrize("with_shadow", [True, False])
+    def test_ref_matches_pallas_interpret_ragged(self, with_shadow, K):
+        """One hand, K short or not a multiple of 4 (the CUDA kernel's
+        one-point-at-a-time walk): counts identical, values within 1e-5."""
+        rng = np.random.default_rng(K + int(with_shadow))
+        mi, mv = raster_operands(rng, 1, K, 6)
+        si, sv = raster_operands(rng, 1, K, 3)
+        bf = jnp.bfloat16
+        with mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg._raster_blocks_pallas(
+                jnp.asarray(mi), jnp.asarray(mv).astype(bf), jnp.asarray(si),
+                jnp.asarray(sv).astype(bf), SIZE, with_shadow))
+        tb = lambda a: T(a).to(torch.bfloat16)
+        out = img.raster_blocks_ref(T(mi), tb(mv), T(si) if with_shadow else None,
+                                    tb(sv) if with_shadow else None, SIZE).numpy()
+        assert out.shape == ref.shape == (1, 21 if with_shadow else 15, 64, 64)
+        counts = [4, 9, 14] + ([16, 18, 20] if with_shadow else [])
+        np.testing.assert_array_equal(out[:, counts], ref[:, counts])
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+        assert out[:, counts].sum() > 0
+
+
 def sums_operands(rng, G, K, Cp, n_rows=1):
     """Row sets, columns and pre-masked values with the count last, as
     scatter_mean builds them: ~60% of entries in the image, the rest on the
@@ -115,6 +140,22 @@ class TestRasterSums:
                 jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(aug), SIZE))
         out = img.raster_sums_ref(T(rows), T(cols), T(aug), SIZE).numpy()
         assert out.shape == ref.shape == (4, SIZE, SIZE, Cp)
+        np.testing.assert_array_equal(out[..., -1], ref[..., -1])
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+        assert out[..., -1].sum() > 0
+
+    @pytest.mark.parametrize("K", [200, 2047])
+    @pytest.mark.parametrize("Cp", [4, 2])
+    def test_ref_matches_pallas_interpret_ragged(self, Cp, K):
+        """One hand, K short or not a multiple of 4: counts identical,
+        values within 1e-5."""
+        (rows,), cols, aug = sums_operands(np.random.default_rng(K + Cp), 1,
+                                           K, Cp)
+        with mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg._raster_sums_pallas(
+                jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(aug), SIZE))
+        out = img.raster_sums_ref(T(rows), T(cols), T(aug), SIZE).numpy()
+        assert out.shape == ref.shape == (1, SIZE, SIZE, Cp)
         np.testing.assert_array_equal(out[..., -1], ref[..., -1])
         np.testing.assert_allclose(out, ref, atol=1e-5)
         assert out[..., -1].sum() > 0

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpd_tpu.apps.detect_grasps import main as jmain
 from gpd_tpu.core.types import Grasps as JGrasps
 from gpd_tpu.core.types import write_grasps_csv as jwrite_grasps_csv
 from gpd_tpu.io import pcd as jpcd
@@ -223,9 +224,32 @@ def test_cli_on_the_cpu(tmp_path, capsys):
     assert main([str(cfg), missing], device="cpu") == -1
     assert f"File {missing} could not be found!" in capsys.readouterr().out
     out_csv = str(tmp_path / "grasps.csv")
-    assert main([str(cfg), path, "", out_csv, "--staged"], device="cpu") == 0
+    normals_csv = str(tmp_path / "normals.csv")
+    pts = pcd.load_cloud_file(path)
+    nrm = cam[None, :] - pts
+    np.savetxt(normals_csv, nrm / np.linalg.norm(nrm, axis=1, keepdims=True),
+               delimiter=",")
+    assert main([str(cfg), path, normals_csv, out_csv, "--staged"],
+                device="cpu") == 0
     text = capsys.readouterr().out
     assert "Processed cloud" in text and "Classification" in text
+    assert f"Loaded surface normals from file: {normals_csv}" in text
     rows = open(out_csv).read().splitlines()
     assert 1 <= len(rows) <= 5 and all(len(r.split(",")) == 13 for r in rows)
     assert os.path.getsize(out_csv) > 0
+
+
+def test_cli_empty_normals_argument_is_a_missing_file(tmp_path, capsys):
+    """NORMALS_CSV "" is a file that does not exist, in both packages: the
+    message and -1, and no CSV written."""
+    path = str(tmp_path / "scene.pcd")
+    cam = scene_pcd(path, seed=1)
+    cfg = tmp_path / "three.cfg"
+    cfg.write_text(CFG.format(x=cam[0], y=cam[1], z=cam[2]))
+    out_csv = str(tmp_path / "grasps.csv")
+    argv = [str(cfg), path, "", out_csv]
+    assert main(argv, device="cpu") == -1
+    ours = capsys.readouterr().out
+    assert jmain(argv) == -1
+    assert ours == capsys.readouterr().out == "File  could not be found!\n"
+    assert not os.path.exists(out_csv)

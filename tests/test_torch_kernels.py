@@ -14,19 +14,19 @@ from gpd_tpu_torch.ops import images as img
 SIZE = 60
 
 
-def raster_operands(rng, G, K, nval):
-    idx = rng.integers(0, SIZE, (G, 4, K)).astype(np.int32)
+def raster_operands(rng, G, K, nval, size=SIZE):
+    idx = rng.integers(0, size, (G, 4, K)).astype(np.int32)
     inside = rng.random((G, 1, K)) < 0.6
-    idx = np.where(inside, idx, SIZE).astype(np.int32)
+    idx = np.where(inside, idx, size).astype(np.int32)
     vals = (rng.random((G, nval, K)) * inside).astype(np.float32)
     return torch.from_numpy(idx), torch.from_numpy(vals).to(torch.bfloat16)
 
 
-def sums_operands(rng, G, K, Cp):
+def sums_operands(rng, G, K, Cp, size=SIZE):
     """Two row sets, columns and pre-masked values with the count last;
     ~60% of entries in the image, the rest on the sentinel."""
     inside = rng.random((G, K)) < 0.6
-    ra, rb, cols = (np.where(inside, rng.integers(0, SIZE, (G, K)), SIZE)
+    ra, rb, cols = (np.where(inside, rng.integers(0, size, (G, K)), size)
                     .astype(np.int32) for _ in range(3))
     m = inside.astype(np.float32)[..., None]
     aug = np.concatenate([rng.random((G, K, Cp - 1)) * m, m], -1)
@@ -84,42 +84,97 @@ def test_sums_wrapper_checks_and_cpu_dispatch(two):
     assert fn.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("two", [False, True])
-@pytest.mark.parametrize("Cp", [2, 4, 6])
-def test_sums_kernel_matches_plain_version_on_card(two, Cp):
+# The persistent kernels' ragged cases: a single hand, a hand count that
+# leaves blocks with unequal runs of items, and K that is short, not a
+# multiple of 4 (one point at a time), or above 2048; plus the main path's
+# K = 2048.
+RAGGED_G = [1, 133, 256]
+RAGGED_K = [200, 2047, 2048, 3072]
+
+
+def needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode "
                     "(chip_smoke.py runs it on the card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", RAGGED_G)
+@pytest.mark.parametrize("K", RAGGED_K)
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("Cp", [2, 4, 6])
+def test_sums_kernel_matches_plain_version_on_card(two, Cp, K, G):
+    """Counts exactly equal, values within the f32 reordering tolerance;
+    twice, so a store that overtook the additions would show."""
+    needs_card()
     ra, rb, cols, aug = (t.cuda() for t in sums_operands(
-        np.random.default_rng(Cp), 64, 2048, Cp))
+        np.random.default_rng(Cp), G, K, Cp))
     rows = (ra, rb) if two else (ra,)
     fn = img.raster_sums2 if two else img.raster_sums
     ref = img.raster_sums2_ref if two else img.raster_sums_ref
-    before = fn.launches
-    out = fn(*rows, cols, aug, SIZE)
     expect = ref(*rows, cols, aug, SIZE)
-    assert fn.launches == before + 1
-    assert torch.equal(out[..., -1], expect[..., -1])
-    torch.testing.assert_close(out, expect, atol=1e-3, rtol=1e-5)
+    before = fn.launches
+    for _ in range(2):
+        out = fn(*rows, cols, aug, SIZE)
+        torch.cuda.synchronize()
+        assert torch.equal(out[..., -1], expect[..., -1])
+        torch.testing.assert_close(out, expect, atol=1e-3, rtol=1e-5)
+    assert fn.launches == before + 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", RAGGED_G)
+@pytest.mark.parametrize("K", RAGGED_K)
 @pytest.mark.parametrize("with_shadow", [True, False])
-def test_raster_kernel_matches_plain_version_on_card(with_shadow):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode "
-                    "(chip_smoke.py runs it on the card)")
+def test_raster_kernel_matches_plain_version_on_card(with_shadow, K, G):
+    """As above, for raster_blocks; Ks = K."""
+    needs_card()
     rng = np.random.default_rng(4)
-    mi, mv = raster_operands(rng, 64, 2048, 6)
-    si, sv = raster_operands(rng, 64, 2048, 3)
+    mi, mv = raster_operands(rng, G, K, 6)
+    si, sv = raster_operands(rng, G, K, 3)
     args = [t.cuda() for t in (mi, mv, si, sv)]
     if not with_shadow:
         args[2:] = [None, None]
-    before = img.raster_blocks.launches
-    out = img.raster_blocks(*args, size=SIZE)
     ref = img.raster_blocks_ref(*args, size=SIZE)
-    assert img.raster_blocks.launches == before + 1
     counts = [4, 9, 14] + ([16, 18, 20] if with_shadow else [])
-    assert torch.equal(out[:, counts], ref[:, counts])
-    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    before = img.raster_blocks.launches
+    for _ in range(2):
+        out = img.raster_blocks(*args, size=SIZE)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, counts], ref[:, counts])
+        torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    assert img.raster_blocks.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,size,Cp", [
+    ("raster_blocks", 80, None),   # planes too large for two buffers
+    ("raster_sums", 100, 4),       # one histogram buffer
+    ("raster_sums", 61, 3),        # 183-float rows: plain stores, no bulk
+    ("raster_sums", 60, 9),        # Cp > 8: one block per hand
+])
+def test_kernels_off_the_main_shapes_on_card(kernel, size, Cp):
+    """The launch paths that size 60 with Cp <= 8 does not take, against
+    the plain versions, twice."""
+    needs_card()
+    rng = np.random.default_rng(size)
+    if kernel == "raster_blocks":
+        mi, mv = raster_operands(rng, 133, 2048, 6, size)
+        si, sv = raster_operands(rng, 133, 2048, 3, size)
+        args = [t.cuda() for t in (mi, mv, si, sv)]
+        fn, ref = img.raster_blocks, img.raster_blocks_ref(*args, size=size)
+        counts = lambda t: t[:, [4, 9, 14, 16, 18, 20]]
+        call = lambda: fn(*args, size=size)
+    else:
+        ra, _, cols, aug = (t.cuda() for t in sums_operands(rng, 133, 2048,
+                                                            Cp, size))
+        fn, ref = img.raster_sums, img.raster_sums_ref(ra, cols, aug, size)
+        counts = lambda t: t[..., -1]
+        call = lambda: fn(ra, cols, aug, size)
+    before = fn.launches
+    for _ in range(2):
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.equal(counts(out), counts(ref))
+        torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    assert fn.launches == before + 2

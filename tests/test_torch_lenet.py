@@ -56,3 +56,25 @@ def test_module_layout():
     assert isinstance(net, torch.nn.Module) and not net.training
     assert [fc.out_features for fc in net.fcs] == [500, 2]
     assert net.conv1.weight.shape == (20, 15, 5, 5)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 12, 15])
+def test_init_params_shapes_and_scales(channels):
+    """init_params has gpd_tpu's names and shapes, zero biases, and He
+    weights: each weight's std within 10% of sqrt(2 / fan_in)."""
+    ours = lenet.init_params(torch.Generator().manual_seed(channels),
+                             channels, 60)
+    theirs = jlenet.init_params(jax.random.PRNGKey(0), channels, 60)
+    assert {k: v.shape for k, v in ours.items()} == \
+        {k: tuple(v.shape) for k, v in theirs.items()}
+    for name, w in ours.items():
+        assert w.dtype == np.float32
+        if name.endswith("_b"):
+            assert not w.any()
+            continue
+        fan_in = int(np.prod(w.shape[1:]))
+        assert abs(w.std() / np.sqrt(2.0 / fan_in) - 1) < 0.1, name
+    net = lenet.params_from_numpy(ours, device="cpu")
+    assert net.conv1.in_channels == channels
+    x = torch.from_numpy(images(channels, n=2))
+    assert torch.isfinite(lenet.score(net, x)).all()
