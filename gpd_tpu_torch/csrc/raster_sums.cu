@@ -18,39 +18,48 @@
 //                                       [:, 1] rows_b
 //
 // Bound on an H100 SXM: bytes. At G = 512, K = 2048, size 60 the function
-// moves 54.7 MB at Cp = 4 (29.5 MB of it the output) and 126 MB in the
-// two-row-set mode at Cp = 6, so ~16 us and ~38 us at 3.35 TB/s; at most
-// 4.2 M (8.4 M) f32 adds, which are negligible.
+// moves 54.7 MB at Cp = 4 (29.5 MB of it the output), and in the two-row-set
+// mode 126.2 MB at Cp = 6 (88.5 MB output) and 69.4 MB at Cp = 3, so ~16,
+// ~38 and ~21 us at 3.35 TB/s; at most 4.2 M f32 adds at Cp = 4 and
+// 12.6 M with two row sets at Cp = 6, which are negligible at 67 TFLOP/s.
 //
-// One row set, Cp <= 8 (the detection path): the persistent design of
-// raster_blocks.cu. What held the first version (one block per hand, clear
-// -> add -> store in series) at 3.3x the bound was that at 57.6 KB of
-// shared memory a hand, 396 blocks ran at once, so 512 hands took 1.29
-// waves and the second ran 116 blocks on an otherwise idle card; and that
-// nothing overlapped a block's store with its loads. Now:
-//  - one 512-thread block per SM walks a contiguous run of hands, one
-//    hand's histogram at a time (splitting a hand into row bands, each its
-//    own work item, re-read the hand's points per band and measured
-//    slower: PERF.md, PR 3);
+// Design, for Cp <= 8 in both modes: the persistent design of
+// raster_blocks.cu. A work item is one hand against one row set; with two
+// row sets hand g's items are 2g and 2g + 1, and item i writes the i-th
+// histogram of the output, contiguous. What held the first version (one
+// block per hand, clear -> add -> store in series) at 3.3x the bound with
+// one row set and 4.7x with two was that few blocks fit an SM (one at Cp = 6
+// with two sets: 172.8 KB of shared memory), so the hands ran in waves with
+// an idle tail, and nothing overlapped a block's store with its loads. Now:
+//  - one 512-thread block per SM walks a contiguous run of items in
+//    hand-major order, one item's histogram at a time (60 x 60 x Cp floats:
+//    57.6 KB at Cp = 4, 86.4 KB at Cp = 6), so a hand's second item re-reads
+//    its columns and values from L2 on the same SM. Splitting a hand into
+//    row bands, each its own item, re-read the hand's points per band and
+//    measured slower (PERF.md);
 //  - two histogram buffers: one thread hands a finished item to the copy
 //    engine as one cp.async.bulk store (bulk_store.cuh) while the block
-//    clears the other buffer and sums the next item;
+//    clears the other buffer and sums the next item. The wrapper admits two
+//    row sets only where one hand's pair of histograms fits a block, so in
+//    that mode two item buffers always fit;
 //  - a thread takes 4 points at a time, one 16-byte load for their rows,
 //    one for their columns and Cp for their 4*Cp values, and loads its next
-//    4 before it adds the current ones; at K = 2048 a thread has one unit
-//    a hand, so the look-ahead fetches the next hand's during this one's
-//    additions and store. Against a plain load-then-add walk, in one call
-//    on an H100 at 512 hands: 0.0257 against 0.0269 ms at Cp = 4 and
-//    0.0132 against 0.0158 ms at Cp = 2 (at 256 hands and Cp = 4 it lost
-//    4%: 0.0147 against 0.0141 ms; kernel_ab.py, PERF.md). K not a
+//    4 (in this item or the next) before it adds the current ones. K not a
 //    multiple of 4, or a misaligned operand, takes the same walk one point
 //    at a time;
 //  - a shared-memory f32 atomicAdd compiles to a compare-and-swap loop
-//    (LDS, FADD, ATOMS.CAST.SPIN), one per channel. Where Cp is a multiple
-//    of 4 the cell is 16-byte aligned, and 4 channels take one 128-bit
-//    compare-and-swap loop (atom.shared.cas.b128, sm_90) instead.
-// The two-row-set mode (raster_sums2, on no detection path) and Cp > 8
-// keep the first design: one block per hand, in series. Times: PERF.md.
+//    (LDS, FADD, ATOMS.CAST.SPIN), one per channel, so a cell takes the
+//    widest compare-and-swap loops its alignment allows (add_cell).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, in turns
+// against the earlier sources and against variants of these; PERF.md), at
+// 512 hands: one row set 0.0238 ms at Cp = 4 and 0.0130 ms at Cp = 2; two
+// row sets 0.0689 ms (1.83x the bound) at Cp = 6 and 0.0309 ms (1.49x) at
+// Cp = 3, from 0.1773 and 0.0619 ms with the first design. At Cp = 6,
+// 128 + 64-bit loops (2 a point) beat three 64-bit loops (0.0800 ms) and
+// six atomicAdds (0.0760 ms). With every row on the sentinel, so that
+// no point adds anything, the two-row-set mode still takes 0.0530 ms at
+// Cp = 6 (1.41x) and 0.0283 ms at Cp = 3: loads, clears and stores set that
+// floor, and the additions take the rest. Cp > 8 keeps the first design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,10 +70,9 @@ namespace {
 
 constexpr int kThreads = 256;           // first design
 constexpr int kPersistentThreads = 512;
-constexpr int kMaxCp = 8;
 constexpr int kMaxSmem = 232448;
 
-// ---- First design: one block per hand (two row sets, or Cp > 8). ----
+// ---- First design: one block per hand, for Cp > 8. ----
 
 __device__ __forceinline__ void add_point(float* cell, const float* v,
                                           int Cp) {
@@ -125,20 +133,24 @@ raster_sums_kernel(const int* __restrict__ rows_a,
 using Kernel = void (*)(const int*, const int*, const int*, const float*,
                         float*, int, int, int);
 
-// ---- Persistent design: one row set, Cp <= 8. ----
+// ---- Persistent design: Cp <= 8, one or two row sets. ----
 
 struct Operands {
-  const int* rows;
+  const int* rows_a;
+  const int* rows_b;  // the second row set, or nullptr
   const int* cols;
   const float* aug;
   float* out;
-  int G, K, size;
+  bool two_sets;  // item i is hand i >> 1 against row set i & 1, else hand i
+  int items;      // G, or 2G with two row sets
+  int K, size;
   bool vec;       // 4-point loads are aligned
-  bool use_bulk;  // a hand's output is a multiple of 16 bytes
+  bool use_bulk;  // an item's output is a multiple of 16 bytes
 };
 
-// One work item: hand g's operands and output.
-struct Hand {
+// One work item: a hand against one row set, and its histogram's place in
+// the output.
+struct Item {
   const int* rows;
   const int* cols;
   const float* aug;
@@ -146,13 +158,16 @@ struct Hand {
 };
 
 template <int CP>
-__device__ __forceinline__ Hand hand_at(const Operands& op, int64_t g) {
-  Hand h;
-  h.rows = op.rows + g * op.K;
-  h.cols = op.cols + g * op.K;
-  h.aug = op.aug + g * op.K * CP;
-  h.out = op.out + g * op.size * op.size * CP;
-  return h;
+__device__ __forceinline__ Item item_at(const Operands& op, int i) {
+  const int64_t g = op.two_sets ? i >> 1 : i;
+  Item it;
+  it.rows = (op.two_sets && (i & 1) ? op.rows_b : op.rows_a) + g * op.K;
+  it.cols = op.cols + g * op.K;
+  it.aug = op.aug + g * op.K * CP;
+  // Item i writes the i-th histogram of the output: hand g's, or with two
+  // row sets hand g's set s at 2g + s.
+  it.out = op.out + static_cast<int64_t>(i) * op.size * op.size * CP;
+  return it;
 }
 
 // Up to 4 points: rows, columns and their 4*CP values, point-major.
@@ -178,19 +193,19 @@ __device__ __forceinline__ void set_lane(float4& a, int i, float v) {
 }
 
 template <int CP>
-__device__ __forceinline__ void load(Unit<CP>& u, const Hand& h, bool vec,
+__device__ __forceinline__ void load(Unit<CP>& u, const Item& it, bool vec,
                                      int k) {
   if (vec) {
-    u.r = __ldg(reinterpret_cast<const int4*>(h.rows) + k);
-    u.c = __ldg(reinterpret_cast<const int4*>(h.cols) + k);
+    u.r = __ldg(reinterpret_cast<const int4*>(it.rows) + k);
+    u.c = __ldg(reinterpret_cast<const int4*>(it.cols) + k);
     // Points 4k..4k+3 hold 4*CP floats from float 4k*CP: 16-byte aligned.
-    const float4* a = reinterpret_cast<const float4*>(h.aug) + k * CP;
+    const float4* a = reinterpret_cast<const float4*>(it.aug) + k * CP;
 #pragma unroll
     for (int q = 0; q < CP; ++q) u.a[q] = __ldg(a + q);
   } else {
-    u.r.x = __ldg(h.rows + k);
-    u.c.x = __ldg(h.cols + k);
-    const float* a = h.aug + static_cast<int64_t>(k) * CP;
+    u.r.x = __ldg(it.rows + k);
+    u.c.x = __ldg(it.cols + k);
+    const float* a = it.aug + static_cast<int64_t>(k) * CP;
 #pragma unroll
     for (int q = 0; q < CP; ++q) set_lane(u.a[q / 4], q % 4, __ldg(a + q));
   }
@@ -207,6 +222,18 @@ __device__ __forceinline__ float lo(uint64_t x) {
 
 __device__ __forceinline__ float hi(uint64_t x) {
   return __uint_as_float(static_cast<uint32_t>(x >> 32));
+}
+
+// cell[0..1] += (a, b) with one 64-bit compare-and-swap loop.
+__device__ __forceinline__ void add2(float* cell, float a, float b) {
+  unsigned long long* p = reinterpret_cast<unsigned long long*>(cell);
+  unsigned long long want = *p;
+  while (true) {
+    const unsigned long long seen =
+        atomicCAS(p, want, pack2(lo(want) + a, hi(want) + b));
+    if (seen == want) break;
+    want = seen;
+  }
 }
 
 // cell[0..3] += v with one 128-bit compare-and-swap loop (sm_90).
@@ -233,9 +260,39 @@ __device__ __forceinline__ void add4(float* cell, float4 v) {
   }
 }
 
-// Adds up to N points' CP values into their cells: 4 channels per 128-bit
-// compare-and-swap where CP is a multiple of 4 (the cell is then 16-byte
-// aligned), else one f32 atomicAdd each.
+// Adds one point's CP values into its cell (cell index `at`) with the
+// fewest compare-and-swap loops the cell's alignment allows. CP a multiple
+// of 4: the cell is 16-byte aligned, one 128-bit loop per 4 channels. CP =
+// 4m + 2: the cell is 8-byte aligned, and 16-byte aligned where `at` is
+// even; then the 4m channels from the start take 128-bit loops and the last
+// 2 one 64-bit loop, else the first 2 and then the rest (CP = 6: 2 loops a
+// point, where 64-bit pairs take 3 and per-channel atomicAdd 6). Odd CP:
+// one f32 atomicAdd each.
+template <int CP>
+__device__ __forceinline__ void add_cell(float* cell, const float (&v)[CP],
+                                         int at) {
+  if constexpr (CP % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < CP; q += 4)
+      add4(cell + q, make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+  } else if constexpr (CP % 2 == 0) {
+    // 128-bit runs from channel 0 and the pair last (even cell), or the
+    // pair first and the runs from channel 2 (odd cell).
+    const bool odd = at & 1;
+#pragma unroll
+    for (int q = 0; q + 2 < CP; q += 4)
+      add4(cell + (odd ? q + 2 : q),
+           make_float4(odd ? v[q + 2] : v[q], odd ? v[q + 3] : v[q + 1],
+                       odd ? v[q + 4] : v[q + 2], odd ? v[q + 5] : v[q + 3]));
+    add2(cell + (odd ? 0 : CP - 2), odd ? v[0] : v[CP - 2],
+         odd ? v[1] : v[CP - 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CP; ++j) atomicAdd(cell + j, v[j]);
+  }
+}
+
+// Adds up to N points of a unit into the histogram.
 template <int CP, int N>
 __device__ __forceinline__ void add_points(float* hist, const Unit<CP>& u,
                                            int size) {
@@ -243,19 +300,12 @@ __device__ __forceinline__ void add_points(float* hist, const Unit<CP>& u,
   for (int i = 0; i < N; ++i) {
     const int r = lane(u.r, i), c = lane(u.c, i);
     if ((unsigned)c < (unsigned)size && (unsigned)r < (unsigned)size) {
-      float* cell = hist + (r * size + c) * CP;
+      const int at = r * size + c;
       float v[CP];
 #pragma unroll
       for (int j = 0; j < CP; ++j)
         v[j] = lane(u.a[(i * CP + j) / 4], (i * CP + j) % 4);
-      if (CP % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < CP; q += 4)
-          add4(cell + q, make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
-      } else {
-#pragma unroll
-        for (int j = 0; j < CP; ++j) atomicAdd(cell + j, v[j]);
-      }
+      add_cell<CP>(hist + at * CP, v, at);
     }
   }
 }
@@ -265,34 +315,35 @@ __global__ void __launch_bounds__(kPersistentThreads)
 raster_sums_persistent(const Operands op, bool two_buffers) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int floats = op.size * op.size * CP;  // one hand's histogram
+  const int floats = op.size * op.size * CP;  // one item's histogram
   const int slot = (floats + 3) / 4 * 4;
   const int first = static_cast<int>(
-      static_cast<int64_t>(op.G) * blockIdx.x / gridDim.x);
+      static_cast<int64_t>(op.items) * blockIdx.x / gridDim.x);
   const int n = static_cast<int>(
-      static_cast<int64_t>(op.G) * (blockIdx.x + 1) / gridDim.x) - first;
+      static_cast<int64_t>(op.items) * (blockIdx.x + 1) / gridDim.x) - first;
   if (n <= 0) return;
   const int units = op.vec ? op.K / 4 : op.K;
 
-  // The walk over (hand j, unit u): cur is loaded one step ahead of its
-  // additions. Every hand has the same number of units.
+  // The walk over (item j, unit u): cur is loaded one step ahead of its
+  // additions. Every item has the same number of units.
   int cj = units > static_cast<int>(threadIdx.x) ? 0 : n;
   int cu = threadIdx.x;
   Unit<CP> cur, nxt;
-  if (cj < n) load(cur, hand_at<CP>(op, first), op.vec, cu);
+  if (cj < n) load(cur, item_at<CP>(op, first), op.vec, cu);
 
   bulk::clear(smem, slot / 4);
   __syncthreads();
   for (int j = 0; j < n; ++j) {
     float* hist = smem + (two_buffers ? (j & 1) * slot : 0);
-    const Hand h = hand_at<CP>(op, first + j);
+    const Item it = item_at<CP>(op, first + j);
     while (cj == j) {
       int nj = cj, nu = cu + kPersistentThreads;
       if (nu >= units) {
         nu = threadIdx.x;
         ++nj;
       }
-      if (nj < n) load(nxt, nj == j ? h : hand_at<CP>(op, first + nj), op.vec, nu);
+      if (nj < n)
+        load(nxt, nj == j ? it : item_at<CP>(op, first + nj), op.vec, nu);
       if (op.vec)
         add_points<CP, 4>(hist, cur, op.size);
       else
@@ -304,7 +355,7 @@ raster_sums_persistent(const Operands op, bool two_buffers) {
     const bool more = j + 1 < n;
     float* next = !more ? nullptr
                   : two_buffers ? smem + ((j + 1) & 1) * slot : hist;
-    bulk::finish_item(hist, h.out, floats, op.use_bulk, two_buffers, next,
+    bulk::finish_item(hist, it.out, floats, op.use_bulk, two_buffers, next,
                       more ? slot / 4 : 0);
   }
   if (threadIdx.x == 0) bulk::wait_read_all();
@@ -315,19 +366,21 @@ bool aligned(const void* p, uintptr_t to) {
 }
 
 template <int CP>
-int launch_persistent(const void* rows, const void* cols, const void* aug,
-                      void* out, int G, int K, int size, int num_sms,
-                      cudaStream_t stream) {
+int launch_persistent(const void* rows_a, const void* rows_b, const void* cols,
+                      const void* aug, void* out, int G, int K, int size,
+                      int num_sms, cudaStream_t stream) {
   Operands op;
-  op.rows = (const int*)rows;
+  op.rows_a = (const int*)rows_a;
+  op.rows_b = (const int*)rows_b;
   op.cols = (const int*)cols;
   op.aug = (const float*)aug;
   op.out = (float*)out;
-  op.G = G;
+  op.two_sets = rows_b != nullptr;
+  op.items = op.two_sets ? 2 * G : G;
   op.K = K;
   op.size = size;
-  op.vec = K % 4 == 0 && aligned(rows, 16) && aligned(cols, 16) &&
-           aligned(aug, 16);
+  op.vec = K % 4 == 0 && aligned(rows_a, 16) && aligned(rows_b, 16) &&
+           aligned(cols, 16) && aligned(aug, 16);
   op.use_bulk = (size * CP) % 4 == 0 && aligned(out, 16);
   const int slot_bytes = (size * size * CP + 3) / 4 * 4 * (int)sizeof(float);
   const bool two = 2 * slot_bytes <= kMaxSmem;
@@ -342,7 +395,7 @@ int launch_persistent(const void* rows, const void* cols, const void* aug,
       &per_sm, raster_sums_persistent<CP>, kPersistentThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = G < num_sms * per_sm ? G : num_sms * per_sm;
+  const int grid = op.items < num_sms * per_sm ? op.items : num_sms * per_sm;
   raster_sums_persistent<CP>
       <<<grid, kPersistentThreads, smem, stream>>>(op, two);
   return (int)cudaGetLastError();
@@ -353,25 +406,24 @@ int launch_persistent(const void* rows, const void* cols, const void* aug,
 extern "C" {
 
 // Launches on `stream`; returns a cudaError_t (0 on success). rows_b NULL
-// selects the one-row-set mode, which for Cp <= 8 runs the persistent
+// selects the one-row-set mode. For Cp <= 8 either mode runs the persistent
 // kernel over a grid sized by num_sms, the card's SM count.
 int raster_sums_launch(const void* rows_a, const void* rows_b,
                        const void* cols, const void* aug, void* out, int G,
                        int K, int Cp, int size, int num_sms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const bool two = rows_b != nullptr;
-  if (!two && Cp >= 1 && Cp <= kMaxCp) {
-    switch (Cp) {
-      case 1: return launch_persistent<1>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 2: return launch_persistent<2>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 3: return launch_persistent<3>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 4: return launch_persistent<4>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 5: return launch_persistent<5>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 6: return launch_persistent<6>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      case 7: return launch_persistent<7>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-      default: return launch_persistent<8>(rows_a, cols, aug, out, G, K, size, num_sms, s);
-    }
+  switch (Cp) {
+    case 1: return launch_persistent<1>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 2: return launch_persistent<2>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 3: return launch_persistent<3>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 4: return launch_persistent<4>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 5: return launch_persistent<5>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 6: return launch_persistent<6>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 7: return launch_persistent<7>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    case 8: return launch_persistent<8>(rows_a, rows_b, cols, aug, out, G, K, size, num_sms, s);
+    default: break;
   }
+  const bool two = rows_b != nullptr;
   const int smem = (two ? 2 : 1) * size * size * Cp * (int)sizeof(float);
   Kernel kernel = two ? raster_sums_kernel<true> : raster_sums_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -377,10 +377,12 @@ def _check_sums_operands(row_sets, cols, aug, size: int):
         raise ValueError("raster operands must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("raster operands must be contiguous")
-    # One hand's histogram set must fit in a block's shared memory; the
-    # one-row-set kernel keeps two hands' (2 x 57.6 KB at size 60, Cp = 4)
-    # where they fit, so one hand's bulk store drains while the next is
-    # summed.
+    # One hand's histogram set must fit in a block's shared memory. For
+    # Cp <= 8 the kernel keeps one hand's histogram against one row set per
+    # work item, in two buffers where two fit (2 x 57.6 KB at size 60 and
+    # Cp = 4; with two row sets always, 2 x 86.4 KB at Cp = 6), so one
+    # item's bulk store drains while the next is summed; for Cp > 8 it keeps
+    # the whole set, one histogram per row set.
     if len(row_sets) * size * size * aug.shape[2] * 4 > _build.MAX_DYNAMIC_SMEM:
         raise ValueError(f"{len(row_sets)} histogram(s) of {size}x{size}x"
                          f"{aug.shape[2]} need more shared memory than a "
@@ -447,8 +449,9 @@ raster_sums.launches = 0
 def raster_sums2(rows_a, rows_b, cols, aug, size: int):
     """Two histograms per hand that share the column indices and values:
     the port of ``_raster_sums_pallas2`` (gpd_tpu/ops/images.py:136), as the
-    two-row-set mode of csrc/raster_sums.cu. Returns (G, 2, size, size, Cp)
-    float32: [:, 0] against ``rows_a``, [:, 1] against ``rows_b``. No
+    two-row-set mode of csrc/raster_sums.cu (each hand's two histograms are
+    two work items of its persistent kernel). Returns (G, 2, size, size,
+    Cp) float32: [:, 0] against ``rows_a``, [:, 1] against ``rows_b``. No
     detection path calls it (nor gpd_tpu's). CPU tensors take
     ``raster_sums2_ref``; ``raster_sums2.launches`` counts launches."""
     _check_sums_operands((rows_a, rows_b), cols, aug, size)

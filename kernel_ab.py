@@ -1,24 +1,30 @@
-"""Times the port's raster kernels in another copy of the repo ("baseline")
-against this one ("current"), in turns on one card: baseline, current,
-current, baseline.
+"""Times the port's raster kernels in other copies of the repo against this
+one ("current"), in turns on one card: every tree in order, then in reverse
+(for one other tree: baseline, current, current, baseline).
 
-    python3 kernel_ab.py BASELINE_TREE
+    python3 kernel_ab.py TREE [TREE ...]
 
-BASELINE_TREE holds the repo at another commit, for example unpacked from
-`git archive COMMIT` into chip_scratch/ (ignored by git, copied to the chip
-machine). Each tree's kernels build from its own csrc/ into its own
-_build/, and both are called through the port's public wrappers,
-images.raster_blocks and images.raster_sums, so any two commits of the port
-compare.
+Each TREE holds the repo at another commit, or a variant of it, for example
+unpacked from `git archive COMMIT` into chip_scratch/ (ignored by git,
+copied to the chip machine); it is labelled by its directory's name. Each
+tree's kernels build from its own csrc/ into its own _build/, all trees'
+nvcc processes at once, and every tree is called through the port's public
+wrappers, images.raster_blocks, images.raster_sums and images.raster_sums2,
+so any commits of the port compare. The build prints each tree's
+raster_sums register lines.
 
 Shapes: raster_blocks as the 15-channel path calls it (512 hands,
-Km = Ks = 2048, with shadows), and raster_sums at 60x60 cells and K = 2048
-for Cp = 4 (3 channels) and Cp = 2 (1 channel), each at 512 and 256 hands,
-the detector's two chunk sizes. Each version is first held against the
-current plain version; times are chip_smoke.cuda_ms's (inputs read from
-HBM). Prints the card's name and power limit first.
+Km = Ks = 2048, with shadows); raster_sums at 60x60 cells and K = 2048 for
+Cp = 4 (3 channels) and Cp = 2 (1 channel), and raster_sums2 (two row sets)
+at Cp = 6 and 3, each at 512 and 256 hands, the detector's two chunk sizes;
+then raster_sums2 at 512 hands with every row on the sentinel ("empty"), so
+its loads, clears and stores are timed without a single addition. Each
+version is first held against the current plain version; times are
+chip_smoke.cuda_ms's (inputs read from HBM). Prints the card's name and
+power limit first.
 """
 
+import concurrent.futures
 import importlib
 import os
 import subprocess
@@ -37,6 +43,19 @@ def images_of(tree):
         return importlib.import_module("gpd_tpu_torch.ops.images")
     finally:
         sys.path.pop(0)
+
+
+def build_all(versions):
+    """Builds every tree's kernels at once; prints raster_sums' registers."""
+    def build(m):
+        return m._build.build(["raster_blocks", "raster_sums"])
+    with concurrent.futures.ThreadPoolExecutor(len(versions)) as pool:
+        logs = dict(zip(versions, pool.map(build, versions.values())))
+    for label, log in logs.items():
+        lines = [line.split(":", 1)[-1].strip()
+                 for line in log.get("raster_sums", "").splitlines()
+                 if "Compiling entry" in line or "registers" in line]
+        print(f"{label} raster_sums: " + "; ".join(lines))
 
 
 def compare(torch, name, versions, call, args, ref):
@@ -60,7 +79,7 @@ def compare(torch, name, versions, call, args, ref):
 
 
 def main():
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         sys.exit(__doc__)
     import torch
     if not torch.cuda.is_available():
@@ -68,9 +87,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    versions = {"baseline": images_of(sys.argv[1]),
-                "current": images_of(os.path.dirname(
-                    os.path.abspath(__file__)))}
+    versions = {os.path.basename(os.path.normpath(tree)): images_of(tree)
+                for tree in sys.argv[1:]}
+    versions["current"] = images_of(os.path.dirname(os.path.abspath(__file__)))
+    build_all(versions)
     img = versions["current"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     K, size = 2048, 60
@@ -79,14 +99,23 @@ def main():
     compare(torch, "raster_blocks G=512", versions,
             lambda m, *a: m.raster_blocks(*a, size), args,
             img.raster_blocks_ref(*args, size))
-    for Cp in (4, 2):
-        for G in (512, 256):
-            (rows,), cols, aug = chip_smoke.sums_operands(torch, gen, G, K,
-                                                          Cp, 1, size)
-            args = (rows, cols, aug)
-            compare(torch, f"raster_sums Cp={Cp} G={G}", versions,
-                    lambda m, *a: m.raster_sums(*a, size), args,
-                    img.raster_sums_ref(*args, size))
+    for name, n_rows, cps in (("raster_sums", 1, (4, 2)),
+                              ("raster_sums2", 2, (6, 3))):
+        for Cp in cps:
+            for G in (512, 256):
+                rows, cols, aug = chip_smoke.sums_operands(
+                    torch, gen, G, K, Cp, n_rows, size)
+                args = (*rows, cols, aug)
+                compare(torch, f"{name} Cp={Cp} G={G}", versions,
+                        lambda m, *a, name=name: getattr(m, name)(*a, size),
+                        args, getattr(img, name + "_ref")(*args, size))
+    for Cp in (6, 3):
+        rows, cols, aug = chip_smoke.sums_operands(torch, gen, 512, K, Cp, 2,
+                                                   size)
+        args = (*(torch.full_like(r, size) for r in rows), cols, aug)
+        compare(torch, f"raster_sums2 Cp={Cp} G=512 empty", versions,
+                lambda m, *a: m.raster_sums2(*a, size), args,
+                img.raster_sums2_ref(*args, size))
 
 
 if __name__ == "__main__":

@@ -174,6 +174,24 @@ class TestRasterSums:
         np.testing.assert_allclose(out, ref, atol=1e-5)
         assert not np.array_equal(out[:, 0], out[:, 1])
 
+    @pytest.mark.parametrize("K", [200, 2047])
+    @pytest.mark.parametrize("Cp", [6, 3])
+    def test_two_row_sets_match_pallas2_interpret_ragged(self, Cp, K):
+        """One hand, K short or not a multiple of 4 (the CUDA kernel's
+        one-point-at-a-time walk over both row sets): counts identical,
+        values within 1e-5."""
+        (ra, rb), cols, aug = sums_operands(np.random.default_rng(K + Cp), 1,
+                                            K, Cp, n_rows=2)
+        with mock.patch.object(jimg.pl, "pallas_call", interpret(jimg.pl)):
+            ref = np.asarray(jimg._raster_sums_pallas2(
+                jnp.asarray(ra), jnp.asarray(rb), jnp.asarray(cols),
+                jnp.asarray(aug), SIZE))
+        out = img.raster_sums2_ref(T(ra), T(rb), T(cols), T(aug), SIZE).numpy()
+        assert out.shape == ref.shape == (1, 2, SIZE, SIZE, Cp)
+        np.testing.assert_array_equal(out[..., -1], ref[..., -1])
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+        assert out[:, 0, ..., -1].sum() > 0 and out[:, 1, ..., -1].sum() > 0
+
 
 class TestShadows:
     @pytest.mark.parametrize("num_cameras", [1, 2])

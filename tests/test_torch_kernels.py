@@ -101,8 +101,9 @@ def needs_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", RAGGED_G)
 @pytest.mark.parametrize("K", RAGGED_K)
-@pytest.mark.parametrize("two", [False, True])
-@pytest.mark.parametrize("Cp", [2, 4, 6])
+@pytest.mark.parametrize("two,Cp", [(False, 2), (False, 4), (False, 6),
+                                    (True, 2), (True, 3), (True, 4),
+                                    (True, 6), (True, 8)])
 def test_sums_kernel_matches_plain_version_on_card(two, Cp, K, G):
     """Counts exactly equal, values within the f32 reordering tolerance;
     twice, so a store that overtook the additions would show."""
@@ -152,6 +153,8 @@ def test_raster_kernel_matches_plain_version_on_card(with_shadow, K, G):
     ("raster_sums", 100, 4),       # one histogram buffer
     ("raster_sums", 61, 3),        # 183-float rows: plain stores, no bulk
     ("raster_sums", 60, 9),        # Cp > 8: one block per hand
+    ("raster_sums2", 61, 3),       # two row sets, plain stores
+    ("raster_sums2", 56, 9),       # two row sets, Cp > 8: one block per hand
 ])
 def test_kernels_off_the_main_shapes_on_card(kernel, size, Cp):
     """The launch paths that size 60 with Cp <= 8 does not take, against
@@ -166,11 +169,13 @@ def test_kernels_off_the_main_shapes_on_card(kernel, size, Cp):
         counts = lambda t: t[:, [4, 9, 14, 16, 18, 20]]
         call = lambda: fn(*args, size=size)
     else:
-        ra, _, cols, aug = (t.cuda() for t in sums_operands(rng, 133, 2048,
-                                                            Cp, size))
-        fn, ref = img.raster_sums, img.raster_sums_ref(ra, cols, aug, size)
+        ra, rb, cols, aug = (t.cuda() for t in sums_operands(rng, 133, 2048,
+                                                             Cp, size))
+        rows = (ra,) if kernel == "raster_sums" else (ra, rb)
+        fn = getattr(img, kernel)
+        ref = getattr(img, kernel + "_ref")(*rows, cols, aug, size)
         counts = lambda t: t[..., -1]
-        call = lambda: fn(ra, cols, aug, size)
+        call = lambda: fn(*rows, cols, aug, size)
     before = fn.launches
     for _ in range(2):
         out = call()
