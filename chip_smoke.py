@@ -7,7 +7,8 @@ Phases; any failure exits non-zero and prints no result line:
 
   1. device: one CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel from gpd_tpu_torch/csrc, one nvcc each,
-     all started together, and prints their register and spill lines;
+     and the ascii PCD parser with the host compiler, all started
+     together, and prints the kernels' register and spill lines;
   3. kernels: each kernel against its plain version at the main paths'
      shapes, with its time, the plain version's, one library call's and
      the bound (each timed call reads its inputs from HBM, not the L2):
@@ -17,27 +18,46 @@ Phases; any failure exits non-zero and prints no result line:
      Cp = 6 and 3, with each Cp's ms / bound_ms on one line; then
      raster_blocks, raster_sums and raster_sums2 at ragged shapes (G 1,
      133, 256; K 200, 2047, 3072; with and without shadows, Cp 4 and 2,
-     Cp 6 and 3). Every check runs the kernel twice: counts exactly
-     equal, values within atol 1e-3 + rtol 1e-5;
+     Cp 6 and 3); then raster_blocks at the staged route's chunk of 4096
+     hands. Every check runs the kernel twice: counts exactly equal,
+     values within atol 1e-3 + rtol 1e-5;
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
      synthetic two-camera table scenes, one warm-up and 3 requests; then
      request 0's scene once more through detect with sync_stages, so each
      stage's time is its own (host clock);
-  5. 3-channel entry point: GraspDetector.detect_file on synthetic
+  5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
+     scenes, one warm-up, 3 requests with SUM_OF_GAUSSIANS and request 0's
+     scene with MAX_OF_GAUSSIANS; each must find a grasp, all finite;
+  6. staged: request 0's scene through detect(staged=True) at a cap of
+     4096 hands, its four-line report and peak memory; it must find
+     detect's candidate count on the same generator seed and share >= 90%
+     of detect's selection by position (1e-5);
+  7. 3-channel entry point: GraspDetector.detect_file on synthetic
      single-camera table scenes written as PCD files to a temporary
      directory, at the default widths with 3 channels, 1000 samples, the
      packaged 3-channel weights and outlier removal, sampling above the
      plane and plane removal before the images all on; one warm-up, 3
      requests, a stage breakdown, and the detect_grasps CLI once with a
-     normals CSV and a CSV output;
-  6. reference: on small scenes, the card's 15- and 3-channel grasp images
+     normals CSV and a CSV output; then the cem_detect_grasps,
+     detect_grasps --staged and generate_candidates (with a CSV) CLIs
+     once each; the api's detect_grasps_in_file and
+     calc_grasp_descriptors once each at 15 channels; and each PCD scene,
+     then a 640 x 480 sensor frame (307200 points), parsed by the native
+     and the NumPy route (identical, native in use, each route timed);
+  8. profiler: one 15-channel detect request and one CEM request under
+     profiling.maybe_trace: the device's busy share of each request's
+     window, each span's host time and the device time of the kernels
+     launched inside it, and the device kernels with the most time (ten
+     for detect, five for CEM) with the operators that launched them;
+  9. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
-  7. the kernels line, the card line, and the status line last.
+ 10. the kernels line (with each kernel's launches per path), the card
+     line, and the status line last.
 
-Before each path of phases 4 and 5 every kernel's launch count is set to
-0; it is read just after the path's requests.
+Before each path of phases 4-7 every kernel's launch count is set
+to 0; it is read just after the path's requests.
 """
 
 import json
@@ -62,6 +82,9 @@ SLEEP_CYCLES = 100_000_000
 # The one camera of the 3-channel scenes: view_cameras' draw from this
 # seed, 44 degrees above the table.
 CAMERA_SEED = 1000
+# The seed of the sensor-frame PCD that times the two ascii parse routes at
+# the size of one depth frame.
+SENSOR_SEED = 11
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 outside the
 # tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -167,41 +190,64 @@ def check_raster(torch, img):
         nb = ref.shape[1]
         print(f"raster_blocks shadows={with_shadow}: G={G} Km={K} "
               f"Ks={K if with_shadow else 0} NB={nb} max_abs_err={err:.3e}")
-        if not with_shadow:
-            continue
-
-        ms = cuda_ms(torch, lambda *a: img.raster_blocks(*a, size), args)
-        plain_ms = cuda_ms(torch, lambda *a: img.raster_blocks_ref(*a, size),
-                           args)
-        # Library yardstick: one index_put_(accumulate=True) on flat
-        # indices precomputed from the same operands (never used by the
-        # port), into a zeroed output.
-        flat, vals = flat_contributions(torch, img, midx, mvals, sidx, svals,
-                                        size, nb)
-        lib_out = torch.zeros(ref.numel(), device="cuda")
-
-        def library(flat, vals):
-            lib_out.zero_()
-            lib_out.index_put_((flat,), vals, accumulate=True)
-        library_ms = cuda_ms(torch, library, (flat, vals))
-        if not torch.allclose(lib_out.view_as(ref), ref, atol=1e-3, rtol=1e-5):
-            fail("index_put_ yardstick disagrees with raster_blocks_ref")
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (midx, mvals, sidx, svals, ref))
-        n_ops = int(vals.numel())          # one f32 add per contribution
-        bound_ms, bound_by = bound(nbytes, n_ops)
-        print(f"raster_blocks timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_put_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M adds); "
-              f"ms / bound_ms = {ms / bound_ms:.2f}")
-        entry = dict(name="raster_blocks", route="cuda",
-                     source="gpd_tpu_torch/csrc/raster_blocks.cu",
-                     replaces="gpd_tpu/ops/images.py:204",
-                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=library_ms,
-                     bound_ratio=ms / bound_ms)
+        if with_shadow:
+            entry = dict(name="raster_blocks", route="cuda",
+                         source="gpd_tpu_torch/csrc/raster_blocks.cu",
+                         replaces="gpd_tpu/ops/images.py:204",
+                         **time_raster(torch, img, args, ref, size))
     entry["max_abs_err"] = max(max_err, check_raster_ragged(torch, img))
     return entry
+
+
+def time_raster(torch, img, args, ref, size):
+    """raster_blocks, its plain version and one index_put_ on the same
+    operands (with shadows), and the bound; prints them and returns the
+    kernels-line timing fields."""
+    ms = cuda_ms(torch, lambda *a: img.raster_blocks(*a, size), args)
+    plain_ms = cuda_ms(torch, lambda *a: img.raster_blocks_ref(*a, size),
+                       args)
+    # Library yardstick: one index_put_(accumulate=True) on flat indices
+    # precomputed from the same operands (never used by the port), into a
+    # zeroed output.
+    flat, vals = flat_contributions(torch, img, *args, size, ref.shape[1])
+    lib_out = torch.zeros(ref.numel(), device="cuda")
+
+    def library(flat, vals):
+        lib_out.zero_()
+        lib_out.index_put_((flat,), vals, accumulate=True)
+    library_ms = cuda_ms(torch, library, (flat, vals))
+    if not torch.allclose(lib_out.view_as(ref), ref, atol=1e-3, rtol=1e-5):
+        fail("index_put_ yardstick disagrees with raster_blocks_ref")
+    del lib_out
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, ref))
+    n_ops = int(vals.numel())          # one f32 add per contribution
+    bound_ms, bound_by = bound(nbytes, n_ops)
+    print(f"raster_blocks timing (G={args[0].shape[0]}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M "
+          f"adds); ms / bound_ms = {ms / bound_ms:.2f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                bound_ratio=ms / bound_ms)
+
+
+def check_raster_staged_chunk(torch, img):
+    """raster_blocks at the staged route's chunk of 4096 hands (2048 points
+    and 2048 shadow points each) against its plain version, timed; returns
+    the timing fields with the max |diff|."""
+    G, K, size = 4096, 2048, 60
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = raster_operands(torch, gen, G, K, K, size)
+    ref = img.raster_blocks_ref(*args, size)
+    err = hold(torch, f"raster_blocks G={G}",
+               lambda: img.raster_blocks(*args, size), ref,
+               raster_counts(True))
+    print(f"raster_blocks shadows=True: G={G} Km={K} Ks={K} NB={ref.shape[1]}"
+          f" output {ref.numel() * 4 / 2**30:.2f} GiB max_abs_err={err:.3e}")
+    out = dict(time_raster(torch, img, args, ref, size), max_abs_err=err)
+    del args, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_raster_ragged(torch, img):
@@ -498,8 +544,269 @@ def cli_3ch(detect_grasps, pcd, path, cam, tmp):
         fail(f"detect_grasps wrote {len(rows)} CSV rows")
     print(f"detect_grasps CLI: exit 0 in {time.perf_counter() - t0:.3f} s, "
           f"{len(pts)} normals read, {len(rows)} CSV rows")
+    return cfg
 
 
+def seeded(torch, seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def cem_path(torch, img, syn, det, cem, CEMConfig):
+    """CEM (SequentialImportanceSampling) at the default CEMConfig on the
+    15-channel path's scenes: one warm-up, a request per scene with
+    SUM_OF_GAUSSIANS, then request 0's scene with MAX_OF_GAUSSIANS."""
+    sis = cem.SequentialImportanceSampling(det, CEMConfig())
+    p, cs, vp = scene(syn, 100)
+    t0 = time.perf_counter()
+    sis.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
+               generator=seeded(torch, 100), verbose=False)
+    print(f"CEM warm-up request: {time.perf_counter() - t0:.3f} s")
+    reset_counts(img)
+    runs = [(r, cem.SUM_OF_GAUSSIANS) for r in range(REQUESTS)]
+    for r, method in runs + [(0, cem.MAX_OF_GAUSSIANS)]:
+        sis.cem = CEMConfig(sampling_method=method)
+        p, cs, vp = scene(syn, r)
+        cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+        before = img.raster_blocks.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sis.detect(cloud, generator=seeded(torch, r), verbose=False)
+        t = time.perf_counter() - t0
+        h = out.to_host()
+        scores = h.score[h.valid]
+        name = ("MAX_OF_GAUSSIANS" if method == cem.MAX_OF_GAUSSIANS
+                else "SUM_OF_GAUSSIANS")
+        print(f"CEM request {r} ({name}): {int(cloud.mask.sum())} points; "
+              f"round candidates {sis.last_round_counts}, grasps "
+              f"{sis.last_num_grasps}; {t * 1e3:.2f} ms; raster_blocks "
+              f"launches {img.raster_blocks.launches - before}; top scores "
+              f"{np.round(scores[:5], 3).tolist()}")
+        if sis.last_num_grasps < 1:
+            fail(f"CEM request {r} ({name}) found no grasp")
+        if not np.all(np.isfinite(scores)):
+            fail(f"CEM request {r} ({name}) has non-finite scores")
+    launches = counts(img)
+    print(f"launches on the CEM path: {launches} ({len(runs) + 1} requests)")
+    return launches
+
+
+def staged_path(torch, img, syn, det):
+    """Request 0's scene through detect(staged=True) at its default staged
+    cap, 4096 for the 8000 hands of 1000 samples: its report, candidates,
+    launches and peak memory, held against detect() on the same generator
+    seed."""
+    p, cs, vp = scene(syn, 0)
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    ref = det.detect(cloud, generator=seeded(torch, 0), verbose=False)
+    n_ref = det.last_counts["candidates"]
+    det.detect(cloud, generator=seeded(torch, 0), verbose=False,
+               staged=True)                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(img)
+    out = det.detect(cloud, generator=seeded(torch, 0), verbose=True,
+                     staged=True)
+    launches = counts(img)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = det.last_counts["candidates"]
+    a = out.position[out.valid].cpu().numpy()
+    b = ref.position[ref.valid].cpu().numpy()
+    shared = (np.abs(a[:, None] - b[None]).max(-1) <= 1e-5).any(1).mean()
+    print(f"staged request 0: {int(cloud.mask.sum())} points, candidates {n} "
+          f"(detect: {n_ref}), selected {len(a)} (detect: {len(b)}), "
+          f"{shared:.1%} of them shared by position with detect's; "
+          f"runtimes (ms) " + ", ".join(
+              f"{k} {v * 1e3:.2f}" for k, v in det.last_runtimes.items()) +
+          f"; launches {launches}; peak device memory {peak:.2f} GiB")
+    if n != n_ref:
+        fail(f"staged route found {n} candidates, detect {n_ref}")
+    if shared < 0.9:
+        fail(f"staged route shares {shared:.1%} of its selection with detect")
+    if launches["raster_blocks"] < 1:
+        fail("the staged route never launched raster_blocks")
+    return launches
+
+
+def clis_3ch(img, cem_app, detect_grasps, gen_app, cfg, path, tmp):
+    """cem_detect_grasps, detect_grasps --staged and generate_candidates
+    (with a CSV) once each on a 3-channel PCD scene; returns each one's
+    launch counts."""
+    out_csv = os.path.join(tmp, "candidates.csv")
+    per_cli = {}
+    for name, app, argv in (("cem_detect_grasps", cem_app, [cfg, path]),
+                            ("detect_grasps --staged", detect_grasps,
+                             [cfg, path, "--staged"]),
+                            ("generate_candidates", gen_app,
+                             [cfg, path, out_csv])):
+        reset_counts(img)
+        t0 = time.perf_counter()
+        rc = app.main(argv)
+        per_cli[name] = counts(img)
+        print(f"{name} CLI: exit {rc} in {time.perf_counter() - t0:.3f} s; "
+              f"raster_sums launches {per_cli[name]['raster_sums']}")
+        if rc != 0:
+            fail(f"{name} returned {rc}")
+    with open(out_csv) as f:
+        rows = f.read().splitlines()
+    if not rows or any(len(r.split(",")) != 13 for r in rows):
+        fail(f"generate_candidates wrote {len(rows)} CSV rows")
+    print(f"generate_candidates CSV: {len(rows)} rows")
+    for name in ("cem_detect_grasps", "detect_grasps --staged"):
+        if per_cli[name]["raster_sums"] < 1:
+            fail(f"{name} never launched raster_sums")
+    return per_cli
+
+
+def api_15ch(api, DetectorConfig, pcd, path, cam):
+    """detect_grasps_in_file and calc_grasp_descriptors once each at the
+    default (15-channel) config on a PCD scene."""
+    cfg = DetectorConfig(camera_position=tuple(cam[0].tolist()))
+    t0 = time.perf_counter()
+    grasps = api.detect_grasps_in_file(cfg, path, seed=0)
+    t_file = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cands, images = api.calc_grasp_descriptors(cfg, pcd.load_cloud_file(path),
+                                               seed=0)
+    t_desc = time.perf_counter() - t0
+    print(f"api: detect_grasps_in_file {len(grasps)} grasps in {t_file:.3f} "
+          f"s; calc_grasp_descriptors {len(cands)} candidates, images "
+          f"{images.shape} {images.dtype} in {t_desc:.3f} s")
+    if not grasps or not np.isfinite([g["score"] for g in grasps]).all():
+        fail("detect_grasps_in_file found no grasp or a non-finite score")
+    if images.shape != (len(cands), 60, 60, 15) or not len(cands):
+        fail(f"calc_grasp_descriptors gave images {images.shape}")
+
+
+def sensor_frame_pcd(pcd, tmp, seed=SENSOR_SEED):
+    """An ascii PCD at the size of one 640 x 480 depth frame (307200
+    points): a tilted plane 0.5-1 m away with 1 mm noise, back-projected
+    through a pinhole camera, and 10% of the pixels without depth (NaN
+    rows), as an organized sensor cloud comes."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:480, 0:640].astype(np.float64)
+    x, y = (u - 319.5) / 525.0, (v - 239.5) / 525.0
+    z = 0.5 + 0.25 * (x + 1.0) + rng.normal(0.0, 0.001, x.shape)
+    pts = np.stack([x * z, y * z, z], -1).reshape(-1, 3)
+    pts[rng.random(len(pts)) < 0.1] = np.nan
+    path = os.path.join(tmp, "sensor_frame.pcd")
+    pcd.save_pcd(path, pts)
+    return path
+
+
+def pcd_routes(pcd, paths, repeats=5):
+    """Each PCD scene parsed by the native route and by NumPy: identical
+    arrays, and the native route in use; prints each route's median
+    load_pcd time over ``repeats`` calls (host clock, file read
+    included)."""
+    route = pcd.ascii_route()
+
+    def timed():
+        times, out = [], None
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = pcd.load_pcd(path)
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times))
+    for path in paths:
+        native, t_native = timed()
+        saved = pcd._native_parser
+        pcd._native_parser = lambda: None
+        try:
+            plain, t_numpy = timed()
+        finally:
+            pcd._native_parser = saved
+        same = np.array_equal(native, plain, equal_nan=True)
+        print(f"PCD {os.path.basename(path)} ({os.path.getsize(path)} bytes, "
+              f"{len(native)} points): route {route}, load_pcd median of "
+              f"{repeats}: native {t_native * 1e3:.2f} ms, numpy "
+              f"{t_numpy * 1e3:.2f} ms; identical {same}")
+        if route != "native":
+            fail("ascii PCD bodies do not parse natively")
+        if not same:
+            fail(f"the native and NumPy routes disagree on {path}")
+
+
+def traced(profiling, fn, d):
+    """The Chrome trace events of fn() under profiling.maybe_trace(d)."""
+    with profiling.maybe_trace(d) as prof:
+        fn()
+    if prof is None:
+        fail("maybe_trace did not trace")
+    (name,) = os.listdir(d)
+    with open(os.path.join(d, name)) as f:
+        return json.load(f)["traceEvents"]
+
+
+def read_trace(events, span_names, label, n_top):
+    """Prints a traced request's device busy share over its window (the
+    union of kernel intervals from the first span's start to the last
+    one's end), each span's host time and the device time of the kernels
+    launched inside it, and the n_top kernels with the most time with the
+    operators that launched them."""
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("ph") == "X"]
+    spans = {e["name"]: e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") in span_names}
+    if not kernels:
+        fail(f"the profiler trace of the {label} holds no device kernel")
+    if set(spans) != set(span_names):
+        fail(f"the profiler trace lacks spans: {sorted(spans)}")
+    w0 = min(e["ts"] for e in spans.values())
+    w1 = max(e["ts"] + e["dur"] for e in spans.values())
+    busy, end = 0.0, w0
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), min(e["ts"] + e["dur"], w1)
+        if b > a:
+            busy += b - a
+            end = b
+    # Each kernel's launch on the host (the runtime call with its
+    # correlation id) and the operator that launched it (the cpu_op with
+    # its External id).
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    op_of = {e["args"]["External id"]: e["name"] for e in events
+             if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    parts = []
+    for name in span_names:
+        sp = spans[name]
+        inside = [k["dur"] for k in kernels if sp["ts"] <= launch.get(
+            k.get("args", {}).get("correlation"), -1) <= sp["ts"] + sp["dur"]]
+        parts.append(f"{name}: host {sp['dur'] / 1e3:.2f} ms, "
+                     f"{len(inside)} kernels {sum(inside) / 1e3:.2f} ms")
+    by_name = {}
+    for e in kernels:
+        op = op_of.get(e.get("args", {}).get("External id"), "?")
+        t, n, ops = by_name.get(e["name"], (0.0, 0, set()))
+        by_name[e["name"]] = (t + e["dur"], n + 1, ops | {op})
+    total = sum(v[0] for v in by_name.values())
+    print(f"profiler, {label}: window {(w1 - w0) / 1e3:.2f} ms, "
+          f"{len(kernels)} kernel launches of {len(by_name)} kernels, "
+          f"{total / 1e3:.2f} ms of kernel time; device busy "
+          f"{busy / (w1 - w0):.1%} of the window; " + "; ".join(parts))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    for kname, (t, n, ops) in top:
+        print(f"  {t / 1e3:8.3f} ms {n:5d} calls  from "
+              f"{', '.join(sorted(ops))[:80]}: {kname[:100]}")
+
+
+def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
+    """One 15-channel detect request and one CEM request (request 0's
+    scene) under profiling.maybe_trace, each read by read_trace."""
+    p, cs, vp = scene(syn, 0)
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    events = traced(profiling, lambda: det.detect(
+        cloud, generator=seeded(torch, 0), verbose=False),
+        os.path.join(tmp, "detect"))
+    read_trace(events, ("detect_core", "select_and_cluster"),
+               "15-channel detect request", 10)
+    sis = cem.SequentialImportanceSampling(det, CEMConfig())
+    events = traced(profiling, lambda: sis.detect(
+        cloud, generator=seeded(torch, 0), verbose=False),
+        os.path.join(tmp, "cem"))
+    read_trace(events, ("cem_rounds", "cem_scoring", "select_and_cluster"),
+               "15-channel CEM request", 5)
 def reset_counts(img):
     for name in KERNELS:
         getattr(img, name).launches = 0
@@ -588,9 +895,10 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    from gpd_tpu_torch import detector
-    from gpd_tpu_torch.apps import detect_grasps
-    from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
+    from gpd_tpu_torch import api, cem, detector, profiling
+    from gpd_tpu_torch.apps import cem_detect_grasps, detect_grasps
+    from gpd_tpu_torch.apps import generate_candidates
+    from gpd_tpu_torch.config import CEMConfig, DetectorConfig, ImageGeometry
     from gpd_tpu_torch.datasets import synthetic as syn
     from gpd_tpu_torch.detector import GraspDetector
     from gpd_tpu_torch.io import pcd
@@ -601,7 +909,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["raster_blocks", "raster_sums"])
+    logs = _build.build(["raster_blocks", "raster_sums", "pcd_ascii"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -611,6 +919,8 @@ def main():
 
     entries = {"raster_blocks": check_raster(torch, img), **check_sums(
         torch, img)}
+    entries["raster_blocks"]["staged_chunk"] = check_raster_staged_chunk(
+        torch, img)
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
@@ -621,6 +931,10 @@ def main():
     stage_breakdown(torch, det, lambda: det.preprocess_cloud(
         p, view_points=vp, cam_source=cs), img.raster_blocks,
         "15 channels, request 0 scene")
+    by_path = {"detect, 15 channels": launches15,
+               "CEM, 15 channels": cem_path(torch, img, syn, det, cem,
+                                            CEMConfig),
+               "staged, 15 channels": staged_path(torch, img, syn, det)}
 
     with tempfile.TemporaryDirectory() as tmp:
         paths, cam = single_camera_scenes(syn, pcd, tmp, (100, 0, 1, 2))
@@ -638,7 +952,15 @@ def main():
             pcd.load_cloud_file(paths[1]), view_points=cam,
             capacity="serve"), img.raster_sums,
             "3 channels, request 0 scene, preprocess includes the file read")
-        cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
+        cfg_path = cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
+        by_path["detect_file, 3 channels"] = launches3
+        for name, launches in clis_3ch(
+                img, cem_detect_grasps, detect_grasps, generate_candidates,
+                cfg_path, paths[1], tmp).items():
+            by_path[f"{name} CLI, 3 channels"] = launches
+        api_15ch(api, DetectorConfig, pcd, paths[1], cam)
+        pcd_routes(pcd, paths[1:] + [sensor_frame_pcd(pcd, tmp)])
+        profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp)
 
     reference_check(torch, syn, GraspDetector, detector,
                     DetectorConfig(num_samples=32), img.raster_blocks)
@@ -650,13 +972,14 @@ def main():
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
+    for name, e in entries.items():
+        e["launches_by_path"] = {path: launches[name]
+                                 for path, launches in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_ratio")
-    print(json.dumps({"kernels": [
-        {**{k: e[k] for k in keys}, **({"note": e["note"]} if "note" in e
-                                       else {})}
-        for e in entries.values()]}))
+            "bound_ratio", "launches_by_path", "staged_chunk", "note")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
+                                  for e in entries.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

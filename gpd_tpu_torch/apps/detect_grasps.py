@@ -6,8 +6,9 @@ The reference's ``detect_grasps`` app (src/detect_grasps.cpp):
     python -m gpd_tpu_torch.apps.detect_grasps CONFIG PCD [NORMALS_CSV] [OUT_CSV] [--staged]
 
 runs on the CUDA card. A NORMALS_CSV argument, even an empty one, names a
-file that must exist, as in gpd_tpu. ``--staged`` waits for the card after
-each stage and prints the reference's per-stage runtime report.
+file that must exist, as in gpd_tpu. ``--staged`` takes the detector's
+staged route (``GraspDetector.detect(staged=True)``), which prints the
+reference's per-stage runtime report.
 """
 
 import os
@@ -62,7 +63,7 @@ def main(argv=None, device=None):
                                       capacity="serve")
     print(f"Processed cloud: {int(cloud.mask.sum())} points.")
 
-    grasps = detector.detect(cloud, sync_stages=staged)
+    grasps = detector.detect(cloud, staged=staged)
     if len(argv) > 3:
         write_grasps_csv(argv[3], grasps)
     return 0

@@ -1,4 +1,4 @@
-"""Configuration system for gpd_tpu_torch (a copy of gpd_tpu/config.py:21-342,
+"""Configuration system for gpd_tpu_torch (a copy of gpd_tpu/config.py:21-369,
 kept here so the port never imports the JAX package).
 
 Parses the same ``key = value`` / ``#``-comment grammar as the reference's
@@ -319,3 +319,31 @@ def load_config(path: str) -> DetectorConfig:
         num_selected=cfg.get_int("num_selected", 100),
         centered_at_origin=cfg.get_bool("centered_at_origin", False),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class CEMConfig:
+    """Sequential importance sampling parameters
+    (reference: src/gpd/sequential_importance_sampling.cpp:11-52; a copy of
+    gpd_tpu/config.py:345-369)."""
+
+    num_init_samples: int = 50
+    num_iterations: int = 5
+    num_samples_per_iteration: int = 50
+    prob_rand_samples: float = 0.3
+    standard_deviation: float = 0.02
+    sampling_method: int = 0  # 0 = SUM_OF_GAUSSIANS, 1 = MAX_OF_GAUSSIANS
+    min_score: float = 0.0
+
+    @staticmethod
+    def from_file(path: str) -> "CEMConfig":
+        cfg = ConfigFile(path)
+        return CEMConfig(
+            num_init_samples=cfg.get_int("num_init_samples", 50),
+            num_iterations=cfg.get_int("num_iterations", 5),
+            num_samples_per_iteration=cfg.get_int("num_samples_per_iteration", 50),
+            prob_rand_samples=cfg.get_float("prob_rand_samples", 0.3),
+            standard_deviation=cfg.get_float("standard_deviation", 0.02),
+            sampling_method=cfg.get_int("sampling_method", 0),
+            min_score=cfg.get_float("min_score", 0.0),
+        )

@@ -1,21 +1,29 @@
-"""Point-cloud file I/O, PCD and PLY (port of gpd_tpu/io/pcd.py, NumPy
-only).
+"""Point-cloud file I/O, PCD and PLY (port of gpd_tpu/io/pcd.py).
 
 Host-side loaders in place of the reference's PCL file reading
 (src/gpd/util/cloud.cpp:643-660 loadPointCloudFromFile): PCD ascii, binary
 and binary_compressed (LZF), ascii and binary_little_endian PLY, per-point
-normals from CSV, and an ascii PCD writer. gpd_tpu's optional C++ parser
-for large ascii files (native/libgpd_native.so) is not ported: ascii bodies
-parse with NumPy.
+normals from CSV, and an ascii PCD writer.
+
+Ascii PCD bodies parse natively, as gpd_tpu's do with its C++ fast path:
+the port's own copy of that parser (``csrc/pcd_ascii.cpp``) is built at
+first use with the host C++ compiler (``ops/_build.py``) and called through
+ctypes. Where no compiler exists, and for a body with fewer numbers than the
+header promises (which then fails as malformed), NumPy parses instead.
+``ascii_route()`` says which route ascii bodies take.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import re
 import struct
 
 import numpy as np
+
+from gpd_tpu_torch.ops import _build
 
 _PCD_TYPE = {("F", 4): "f4", ("F", 8): "f8",
              ("I", 1): "i1", ("I", 2): "i2", ("I", 4): "i4",
@@ -46,6 +54,39 @@ def _lzf_decompress(data: bytes, expected: int) -> bytes:
                 o += 1
                 ref += 1
     return bytes(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _native_parser():
+    """``parse_ascii_floats`` from csrc/pcd_ascii.cpp, built on first use;
+    None where there is no host C++ compiler."""
+    if _build.host_compiler() is None:
+        return None
+    fn = _build.load("pcd_ascii").parse_ascii_floats
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_longlong]
+    return fn
+
+
+def ascii_route() -> str:
+    """"native" when ascii bodies parse with csrc/pcd_ascii.cpp, else
+    "numpy"."""
+    return "numpy" if _native_parser() is None else "native"
+
+
+def _parse_ascii_block(text_bytes: bytes, n_values: int) -> np.ndarray:
+    """The first ``n_values`` floats of an ascii body, natively; NumPy
+    parses the whole body where the native parser is missing or finds fewer
+    (gpd_tpu/io/pcd.py:76-85)."""
+    fn = _native_parser()
+    if fn is not None:
+        out = np.empty(n_values, dtype=np.float32)
+        got = fn(text_bytes, len(text_bytes),
+                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_values)
+        if got == n_values:
+            return out
+    return np.array(text_bytes.split(), dtype=np.float32)
 
 
 def load_pcd(path: str) -> np.ndarray:
@@ -87,7 +128,7 @@ def load_pcd(path: str) -> np.ndarray:
 
     if mode == "ascii":
         ncols = sum(counts)
-        vals = np.array(raw[pos:].split(), dtype=np.float32)
+        vals = _parse_ascii_block(raw[pos:], npts * ncols)
         vals = vals[: npts * ncols].reshape(npts, ncols)
         out = np.empty((npts, 3), dtype=np.float32)
         col = 0

@@ -1,10 +1,12 @@
-"""Builds the port's CUDA kernels from ``gpd_tpu_torch/csrc`` at first use.
+"""Builds the port's native code from ``gpd_tpu_torch/csrc`` at first use.
 
-Each ``csrc/<name>.cu`` compiles with nvcc for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with ``ctypes``. Libraries
-go to ``gpd_tpu_torch/_build/`` (ignored by git) under a name that carries
-a hash of the source, the ``csrc/*.cuh`` headers and the flags, so an
-edited source rebuilds and an unchanged one is reused.
+Each CUDA kernel ``csrc/<name>.cu`` compiles with nvcc for Hopper
+(``sm_90a``), and each host library ``csrc/<name>.cpp`` with the host C++
+compiler, into a shared library with a plain C interface, loaded with
+``ctypes``. Libraries go to ``gpd_tpu_torch/_build/`` (ignored by git) under
+a name that carries a hash of the source, the ``csrc/*.cuh`` headers (for
+kernels) and the flags, so an edited source rebuilds and an unchanged one is
+reused.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 MAX_DYNAMIC_SMEM = 232448
 
@@ -41,21 +44,46 @@ def nvcc() -> str:
     return path
 
 
+def host_compiler() -> Optional[str]:
+    """The host C++ compiler (``c++``, else ``g++``), or None where there is
+    none."""
+    return shutil.which("c++") or shutil.which("g++")
+
+
+def _is_host(name: str) -> bool:
+    return os.path.exists(os.path.join(CSRC, name + ".cpp"))
+
+
 def library_path(name: str) -> str:
-    """The library's path, named by a hash of its source, the headers in
-    csrc/ and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for f in [name + ".cu", *headers]:
+    """The library's path, named by a hash of its source, (for a kernel) the
+    headers in csrc/, and the flags."""
+    if _is_host(name):
+        flags, files = HOST_FLAGS, [name + ".cpp"]
+    else:
+        flags = NVCC_FLAGS
+        files = [name + ".cu", *sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh"))]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
         with open(os.path.join(CSRC, f), "rb") as src:
             digest.update(src.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+def _command(name: str, out: str):
+    if _is_host(name):
+        cxx = host_compiler()
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (c++ or g++) found")
+        return [cxx, *HOST_FLAGS, "-o", out, os.path.join(CSRC, name + ".cpp")]
+    return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, name + ".cu")]
+
+
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named kernel that is not built yet, one nvcc process
-    each, all started together. Returns nvcc's output per name (register
-    and shared-memory use from ``-Xptxas -v``); raises if a build fails."""
+    """Compile every named library that is not built yet, one compiler
+    process each, all started together. Returns the compiler's output per
+    name (for kernels, register and shared-memory use from ``-Xptxas -v``);
+    raises if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -63,8 +91,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs, failed = {}, []
@@ -75,13 +103,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+        raise RuntimeError("build failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(logs[n] for n in failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use."""
+    """The library ``name``, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -26,6 +26,7 @@ import torch
 
 from gpd_tpu_torch.config import DetectorConfig, HandGeometry
 from gpd_tpu_torch.core.types import Grasps
+from gpd_tpu_torch.ops.frames import estimate_frames
 from gpd_tpu_torch.ops.neighbors import radius_mask, radius_neighbors
 
 _NEG = -1e9
@@ -280,6 +281,19 @@ def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
         full[:, order[:live.shape[1]]] = live
         out[key] = full
     return out
+
+
+def search_hands(cloud, sample_pos: torch.Tensor, sample_mask: torch.Tensor,
+                 cfg: DetectorConfig) -> Grasps:
+    """Full candidate search: local frames at the samples, then
+    ``search_hands_with_frames`` (gpd_tpu/ops/candidates.py:367-380).
+    Returns a flat Grasps batch of S * num_axes * num_orientations,
+    sample-major then (axis, orientation): the reference's HandSet order
+    (hand_set.cpp:31-47)."""
+    frames, fvalid = estimate_frames(
+        sample_pos, sample_mask, cloud.points, cloud.mask, cloud.normals,
+        radius=cfg.nn_radius_frames)
+    return search_hands_with_frames(cloud, sample_pos, frames, fvalid, cfg)
 
 
 def search_hands_with_frames(cloud, sample_pos, frames, fvalid,

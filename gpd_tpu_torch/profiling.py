@@ -1,0 +1,107 @@
+"""Tracing and profiling hooks (port of gpd_tpu/profiling.py).
+
+The reference's observability is per-stage wall-clock prints
+(src/gpd/grasp_detector.cpp:313-320, hand_search.cpp:60-61), which
+``GraspDetector.detect`` keeps. On top of that: a ``torch.profiler`` trace
+of host and device activity (CUDA kernels on the card), written as a Chrome
+trace (viewable in Perfetto or chrome://tracing) when the ``GPD_TPU_PROFILE``
+environment variable names a directory, and named spans for the stages.
+
+Usage:
+    GPD_TPU_PROFILE=/tmp/gpd_trace python -m gpd_tpu_torch.apps.detect_grasps ...
+or programmatically:
+    with profiling.maybe_trace("/tmp/gpd_trace") as prof:   # no-op without
+        detector.detect(cloud)                              # a directory
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Iterator, Optional
+
+import torch
+
+
+def profile_dir() -> Optional[str]:
+    d = os.environ.get("GPD_TPU_PROFILE", "")
+    return d or None
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: Optional[str] = None) -> Iterator[
+        Optional[torch.profiler.profile]]:
+    """Wrap a block in a ``torch.profiler`` trace of the CPU and, where
+    there is one, the CUDA device, if ``trace_dir`` or GPD_TPU_PROFILE names
+    a directory; yields the profiler, whose Chrome trace is written into the
+    directory at exit. Otherwise a no-op that yields None. Inside another
+    trace it traces nothing of its own (the outer one records the block)."""
+    d = trace_dir or profile_dir()
+    if not d or torch.autograd.profiler._is_profiler_enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    print(f"# torch profiler trace written to {path}")
+
+
+def span(name: str):
+    """Named sub-span (``torch.profiler.record_function``): shows up in the
+    trace as a host range around the work queued inside it, and costs next
+    to nothing when no trace is on."""
+    return torch.profiler.record_function(name)
+
+
+class StageTimer:
+    """Per-stage wall-clock times of one request, in the reference's
+    RUNTIMES format (grasp_detector.cpp:313-320). Device work is
+    asynchronous, so the timer waits for ``device`` (when it is a CUDA
+    device) at the end of each stage: a stage's time then covers the device
+    work it queued. A stage is a block (``stage``) or the time since the
+    previous ``mark``; either adds to the stage's total, so chunked stages
+    sum over their chunks. With ``on=False`` nothing waits and nothing is
+    recorded."""
+
+    def __init__(self, device: Optional[torch.device] = None,
+                 on: bool = True):
+        self.device = device
+        self.on = on
+        self.stages = {}
+        self._t0 = self._last = time.perf_counter()
+
+    def _add(self, name: str, since: float) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stages[name] = self.stages.get(name, 0.0) + now - since
+        self._last = now
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t = time.perf_counter()
+        with span(name):
+            yield
+        if self.on:
+            self._add(name, t)
+
+    def mark(self, name: str) -> None:
+        if self.on:
+            self._add(name, self._last)
+
+    def total(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def report(self) -> str:
+        lines = ["======== RUNTIMES ========"]
+        for i, (name, dt) in enumerate(self.stages.items(), 1):
+            lines.append(f" {i}. {name}: {dt:.4f}s")
+        lines.append("==========")
+        lines.append(f" TOTAL: {self.total():.4f}s")
+        return "\n".join(lines)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import gpd_tpu.detector as jdet
+import gpd_tpu.ops.candidates as jcand
 from gpd_tpu.config import DetectorConfig as JConfig
 from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig
@@ -130,3 +131,29 @@ def test_blocked_search(monkeypatch, block_elems, search_cap):
     kw = {"search_neighbors_cap": search_cap, "search_identity_max": 0} \
         if search_cap else None
     compare(jc, spos, kw)
+
+
+def test_search_hands_matches_gpd_tpu():
+    """search_hands (frames, then the search, no filters) against
+    gpd_tpu's: masks exactly, values within 1e-5, the HandSet layout."""
+    rng, pts, nrm = thin_cylinder(13)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, CAMS)
+    jc, spos = prepared(p, vp, cs, 32, 2)
+    kw = dict(num_samples=32, search_neighbors_cap=jc.points.shape[0])
+    cfg = JConfig(**kw)
+    smask = np.ones(len(spos), bool)
+    gj = jcand.search_hands(jc, jnp.asarray(spos), jnp.asarray(smask), cfg)
+    gt = cand.search_hands(port_cloud(jc), T(spos), T(smask),
+                           DetectorConfig(**kw))
+    assert gt.capacity == 32 * 8
+    for f in MASKS:
+        np.testing.assert_array_equal(np.asarray(getattr(gj, f)),
+                                      getattr(gt, f).numpy(), err_msg=f)
+    v = gt.valid.numpy()
+    assert v.sum() > 0
+    for f in VALUES:
+        np.testing.assert_allclose(np.asarray(getattr(gj, f))[v],
+                                   getattr(gt, f).numpy()[v], atol=1e-5,
+                                   err_msg=f)
+    np.testing.assert_array_equal(gt.sample_id.numpy(),
+                                  np.repeat(np.arange(32), 8))

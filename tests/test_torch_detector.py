@@ -22,11 +22,14 @@ accelerator routes, the Pallas rasters in interpret mode. The selected
 grasps must be the same set, positions within 1e-5 and scores within 1e-3.
 
 The preprocessing options (statistical outliers, RANSAC plane fits,
-sampling above the plane, plane removal before the images) and the serving
-capacity buckets are held against gpd_tpu the same way.
+sampling above the plane, plane removal before the images), the serving
+capacity buckets, the staged route and score_candidates' images are held
+against gpd_tpu the same way; profiling's traces of detect are checked on
+the port alone.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -46,6 +49,7 @@ from gpd_tpu.config import ImageGeometry as JImageGeometry
 from gpd_tpu.core.types import CloudArrays as JCloud
 from gpd_tpu.net import lenet as jlenet
 from gpd_tpu_torch import detector as tdet
+from gpd_tpu_torch import profiling
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.datasets import synthetic as syn
@@ -133,6 +137,27 @@ def rod_scene(seed):
     cams = np.array([[0.45, 0.15, 0.35], [-0.2, 0.45, 0.3]], np.float32)
     return syn.render_fused_views(rng, np.concatenate(parts),
                                   np.concatenate(nrms), cams)
+
+
+def rods_only(seed):
+    """Three thin upright rods without caps and without a table, seen by
+    two cameras: every neighborhood is curved. With normals estimated over
+    6 mm (``ROD_KW``) the normals follow the curvature, and frames over
+    2 cm see them turn: every surface point and nearly every point within
+    a few mm of the surface has a well-conditioned frame."""
+    rng = np.random.default_rng(seed)
+    parts, nrms = [], []
+    for x, y in ((-0.05, -0.03), (0.04, -0.04), (0.0, 0.05)):
+        p, n = syn.sample_cylinder(rng, rng.uniform(0.007, 0.01), 0.1, 1800,
+                                   caps=False)
+        parts.append(p + np.array([x, y, 0.05], np.float32))
+        nrms.append(n)
+    cams = np.array([[0.45, 0.15, 0.35], [-0.2, 0.45, 0.3]], np.float32)
+    return syn.render_fused_views(rng, np.concatenate(parts),
+                                  np.concatenate(nrms), cams)
+
+
+ROD_KW = dict(normals_radius=0.006, nn_radius_frames=0.02)
 
 
 def sample_where_frames_defined(jd, jc, n, seed=0):
@@ -373,13 +398,22 @@ def test_active_sample_blocked_descriptor_inputs():
 
 
 def test_imports_neither_jax_nor_gpd_tpu():
-    """Every module of the port, io/ and apps/ included."""
+    """Every module of the port, io/ and apps/ included; and parsing an
+    ascii PCD loads the port's own parser, never gpd_tpu's native/
+    library."""
     code = ("import importlib, pkgutil, sys\n"
             "import gpd_tpu_torch\n"
             "for m in pkgutil.walk_packages(gpd_tpu_torch.__path__,\n"
             "                               'gpd_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "assert 'gpd_tpu_torch.apps.detect_grasps' in sys.modules\n"
+            "new = {'gpd_tpu_torch.' + m for m in ('cem', 'api', 'profiling',\n"
+            "       'apps.detect_grasps', 'apps.cem_detect_grasps',\n"
+            "       'apps.generate_candidates')}\n"
+            "assert new <= set(sys.modules), new - set(sys.modules)\n"
+            "from gpd_tpu_torch.io import pcd\n"
+            "assert pcd.ascii_route() == 'native'\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'libpcd_ascii' in maps and 'libgpd_native' not in maps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gpd_tpu')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -408,7 +442,7 @@ def test_every_module_imports_without_triton_or_nvcc():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 19
+    assert int(r.stdout.split()[-1]) >= 24
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -600,3 +634,190 @@ def test_sample_cloud_draws_above_the_plane():
                              device="cpu")
     pos, valid = det.sample_cloud(tc, torch.Generator().manual_seed(0))
     assert valid.all() and (pos[:, 2].abs() > 0.005).float().mean() > 0.95
+
+
+def test_staged_route_matches_gpd_tpu_and_detect(capsys):
+    """detect(staged=True, staged_cap=256) over several live chunks against
+    gpd_tpu's staged route (its draws injected) and against the port's own
+    detect on the same generator seed; its report and last_runtimes."""
+    p, cs, vp = rods_only(6)
+    kw = dict(num_samples=96, image_neighbors_cap=256, num_selected=12,
+              **ROD_KW)
+    jd = jdet.GraspDetector(JConfig(**kw))
+    td = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = port_cloud(jc)
+    key = jax.random.PRNGKey(8)
+    spos, smask = sample_where_frames_defined(jd, jc, 96)
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jimg, "_use_pallas", lambda: True), \
+                mock.patch.object(jimg.pl, "pallas_call",
+                                  _interpret(jimg.pl.pallas_call)):
+            gj = jd.detect(jc, jnp.asarray(spos), jnp.asarray(smask), key=key,
+                           verbose=False, staged=True,
+                           staged_cap=256).to_host()
+    finally:
+        jax.clear_caches()
+    capsys.readouterr()
+    with inject(key):
+        gt = td.detect(tc, T(spos), T(smask), verbose=True, staged=True,
+                       staged_cap=256).to_host()
+    assert td.last_counts["candidates"] > 256      # 2 or more live chunks
+    assert_same_selection(gj, gt)
+    assert set(td.last_runtimes) == {"candidates", "images", "classify",
+                                     "total"}
+    assert all(v > 0 for v in td.last_runtimes.values())
+    report = capsys.readouterr().out.splitlines()
+    assert report[0] == f"Selected the {int(gt.valid.sum())} best grasps."
+    assert [r.split(":")[0] for r in report[1:]] == [
+        "======== RUNTIMES ========", " 1. Candidate generation",
+        " 2. Descriptors/images", " 3. Classification", "==========",
+        " TOTAL"]
+
+    # The port's detect on the same draws: the same candidates and grasps.
+    n_staged = td.last_counts["candidates"]
+    with inject(key):
+        gd = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
+    assert td.last_counts["candidates"] == n_staged
+    for name in ("position", "score", "valid"):
+        np.testing.assert_array_equal(getattr(gd, name), getattr(gt, name))
+
+
+
+def test_staged_route_traces_itself(tmp_path, monkeypatch):
+    """With GPD_TPU_PROFILE set, detect(staged=True) writes its own trace,
+    which holds the detect_core and select_and_cluster spans."""
+    p, cs, vp = lattice_shell()
+    det = tdet.GraspDetector(DetectorConfig(num_samples=8, voxelize=False,
+                                            normals_radius=0.008),
+                             device="cpu")
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    monkeypatch.setenv("GPD_TPU_PROFILE", str(tmp_path))
+    det.detect(cloud, verbose=False, staged=True)
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"detect_core", "select_and_cluster"} <= names
+
+
+def test_stage_timer_marks():
+    """StageTimer.mark adds the time since the previous mark to its stage,
+    so a stage marked twice sums both; with on=False it records nothing."""
+    timer = profiling.StageTimer(torch.device("cpu"))
+    timer.mark("a")
+    timer.mark("b")
+    timer.mark("a")
+    assert list(timer.stages) == ["a", "b"]
+    assert sum(timer.stages.values()) <= timer.total()
+    off = profiling.StageTimer(torch.device("cpu"), on=False)
+    off.mark("a")
+    with off.stage("b"):
+        pass
+    assert off.stages == {}
+
+
+def image_gate(a, b):
+    """The repo's image gate: under 0.5% of pixels more than one step
+    apart."""
+    assert a.shape == b.shape and a.dtype == b.dtype == np.uint8
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    assert (diff > 1).mean() < 5e-3, (diff > 1).mean()
+
+
+@pytest.mark.parametrize("channels", [15, 3])
+def test_score_candidates_keeps_images(channels):
+    """score_candidates(scores_only=False) against gpd_tpu's: the same
+    valid-first order and scores, images within the gate, zeros past the
+    live chunks; scores_only=True gives the same grasps and no images."""
+    p, cs, vp = rods_only(7)
+    kw = dict(num_samples=48, image_neighbors_cap=256, **ROD_KW)
+    jd = jdet.GraspDetector(JConfig(
+        image_geometry=JImageGeometry(num_channels=channels), **kw))
+    td = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels), **kw),
+        device="cpu")
+    jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    tc = port_cloud(jc)
+    cfg_j = jd.effective_config(jc)
+    cfg_t = td.effective_config(tc)
+    key = jax.random.PRNGKey(9)
+    spos, smask = sample_where_frames_defined(jd, jc, 48)
+    g = jdet.candidates_stage(jc, jnp.asarray(spos), jnp.asarray(smask),
+                              cfg_j)
+    cap = 128
+    assert 0 < int(np.asarray(g.valid).sum()) <= 2 * cap < g.valid.shape[0]
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jimg, "_use_pallas", lambda: True), \
+                mock.patch.object(jimg.pl, "pallas_call",
+                                  _interpret(jimg.pl.pallas_call)):
+            sj, ij = jdet.score_candidates(
+                jc, g, jnp.asarray(spos), jnp.asarray(smask), jd.params, key,
+                cfg_j, cap, scores_only=False, canonical=True)
+            sj, ij = sj.to_host(), np.asarray(ij)
+    finally:
+        jax.clear_caches()
+    gt = port_grasps(g)
+    with inject(key):
+        st, it = tdet.score_candidates(tc, gt, T(spos), T(smask), td.net,
+                                       None, cfg_t, cap, scores_only=False)
+    st, it = st.to_host(), it.numpy()
+    np.testing.assert_array_equal(sj.valid, st.valid)
+    np.testing.assert_array_equal(sj.sample_id, st.sample_id)
+    np.testing.assert_allclose(sj.score[sj.valid], st.score[st.valid],
+                               atol=1e-3)
+    image_gate(ij, it)
+    n_live = -(-int(st.valid.sum()) // cap)
+    assert it[:n_live * cap].any() and not it[n_live * cap:].any()
+    with inject(key):
+        s2, none = tdet.score_candidates(tc, gt, T(spos), T(smask), td.net,
+                                         None, cfg_t, cap)
+    assert none is None
+    np.testing.assert_array_equal(s2.score.numpy(), st.score)
+    # descriptors_stage: the first valid hands' images, once more.
+    noise = jax_noise(key, 48, 2, *tdet._shadow_shape(tc, cfg_t))
+    inputs = tdet.image_inputs_stage(tc, tc.mask, T(spos), T(smask),
+                                     noise if channels == 15 else None, cfg_t)
+    gc, ic = tdet.descriptors_stage(tc, gt, *inputs, cfg_t, cap)
+    np.testing.assert_array_equal(gc.sample_id.numpy(), st.sample_id[:cap])
+    np.testing.assert_array_equal(ic.numpy(), it[:cap])
+
+
+def test_profiling_traces_detect(tmp_path, monkeypatch):
+    """maybe_trace is a no-op without a directory; with one it writes a
+    Chrome trace that holds detect's spans, and GPD_TPU_PROFILE makes
+    detect trace itself. StageTimer reports in the reference's format."""
+    p, cs, vp = lattice_shell()
+    det = tdet.GraspDetector(DetectorConfig(num_samples=8, voxelize=False,
+                                            normals_radius=0.008),
+                             device="cpu")
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    monkeypatch.delenv("GPD_TPU_PROFILE", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with profiling.maybe_trace() as prof:
+        det.detect(cloud, verbose=False)
+    assert prof is None and not os.listdir(tmp_path)
+
+    def names(d):
+        files = os.listdir(d)
+        assert len(files) == 1 and files[0].endswith(".json")
+        with open(os.path.join(d, files[0])) as f:
+            return {e.get("name") for e in json.load(f)["traceEvents"]}
+    with profiling.maybe_trace(str(tmp_path / "a")) as prof:
+        det.detect(cloud, verbose=False)
+    assert prof is not None
+    assert {"detect_core", "select_and_cluster"} <= names(tmp_path / "a")
+    monkeypatch.setenv("GPD_TPU_PROFILE", str(tmp_path / "b"))
+    det.detect(cloud, verbose=False)
+    assert "detect_core" in names(tmp_path / "b")
+
+    timer = profiling.StageTimer()
+    with timer.stage("candidates"):
+        pass
+    with timer.stage("candidates"):
+        pass
+    lines = timer.report().splitlines()
+    assert lines[0] == "======== RUNTIMES ========"
+    assert lines[1].startswith(" 1. candidates: ") and lines[2] == "=========="
+    assert lines[3].startswith(" TOTAL: ") and len(lines) == 4

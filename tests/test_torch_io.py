@@ -1,24 +1,34 @@
-"""gpd_tpu_torch's file entry point against gpd_tpu on the CPU: point-cloud
-and normals files read by both packages, the grasp CSV written by both,
-GraspDetector.detect_file, and the detect_grasps CLI."""
+"""gpd_tpu_torch's file entry points against gpd_tpu on the CPU: point-cloud
+and normals files read by both packages (ascii PCD bodies by the port's
+native parser and by NumPy), the grasp CSV written by both,
+GraspDetector.detect_file, the detect_grasps CLI (with --staged) and the
+generate_candidates CLI."""
 
 import os
+import unittest.mock as mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import gpd_tpu.detector as jdet
+import gpd_tpu.ops.preprocess as jpp
 from gpd_tpu.apps.detect_grasps import main as jmain
+from gpd_tpu.apps.generate_candidates import main as jgen
 from gpd_tpu.core.types import Grasps as JGrasps
 from gpd_tpu.core.types import write_grasps_csv as jwrite_grasps_csv
 from gpd_tpu.io import pcd as jpcd
 from gpd_tpu_torch.apps.detect_grasps import main
+from gpd_tpu_torch.apps.generate_candidates import main as gen
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import Grasps, write_grasps_csv
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.io import pcd
+from gpd_tpu_torch.ops import draws
+from test_torch_detector import frame_gap_ok, lattice_shell
 
 
 def cloud(seed, n=500):
@@ -253,3 +263,148 @@ def test_cli_empty_normals_argument_is_a_missing_file(tmp_path, capsys):
     assert jmain(argv) == -1
     assert ours == capsys.readouterr().out == "File  could not be found!\n"
     assert not os.path.exists(out_csv)
+
+
+def ascii_pcd(path, pts, fmt, extra=0, npts=None):
+    """An ascii PCD of ``pts`` with ``fmt`` per value; ``extra`` adds a
+    COUNT-3 normal field and an rgb field after xyz; ``npts`` overrides the
+    POINTS count."""
+    n = len(pts)
+    fields, sizes, types, counts = "x y z", "4 4 4", "F F F", "1 1 1"
+    if extra:
+        fields += " normal rgb"
+        sizes += " 4 4"
+        types += " F U"
+        counts += " 3 1"
+    rng = np.random.default_rng(0)
+    with open(path, "w") as f:
+        f.write(f"# .PCD v0.7\nVERSION 0.7\nFIELDS {fields}\nSIZE {sizes}\n"
+                f"TYPE {types}\nCOUNT {counts}\nWIDTH {n}\nHEIGHT 1\n"
+                f"POINTS {npts or n}\nDATA ascii\n")
+        for row in pts.tolist():
+            vals = [fmt(v) for v in row]
+            if extra:
+                vals += [fmt(v) for v in rng.normal(size=3).tolist()]
+                vals.append(str(int(rng.integers(0, 1 << 24))))
+            f.write(" ".join(vals) + "\n")
+
+
+@pytest.mark.parametrize("case", ["repr", "exponents", "fixed", "extra"])
+def test_ascii_pcd_native_route(tmp_path, case):
+    """The port's native ascii parser against its NumPy route and against
+    gpd_tpu's load_pcd: identical arrays, NaN rows kept."""
+    pts = cloud(5, n=2000)
+    pts[10] = (np.nan, 1.0, np.nan)
+    fmt = {"repr": repr, "exponents": lambda v: f"{v:.8E}",
+           "fixed": lambda v: f"{v:.6f}", "extra": repr}[case]
+    path = str(tmp_path / f"{case}.pcd")
+    ascii_pcd(path, pts, fmt, extra=case == "extra")
+    assert pcd.ascii_route() == "native"
+    native = pcd.load_pcd(path)
+    with mock.patch.object(pcd, "_native_parser", lambda: None):
+        assert pcd.ascii_route() == "numpy"
+        numpy_route = pcd.load_pcd(path)
+    np.testing.assert_array_equal(native, numpy_route)
+    np.testing.assert_array_equal(native, jpcd.load_pcd(path))
+    assert native.shape == (2000, 3) and np.isnan(native[[3, 10]]).sum() == 5
+    if case in ("repr", "extra"):
+        np.testing.assert_array_equal(native, pts)
+
+
+def test_ascii_pcd_short_body_falls_back(tmp_path):
+    """A body with fewer numbers than POINTS promises: the native parse
+    comes up short, NumPy parses instead and the file fails as malformed,
+    as in gpd_tpu."""
+    path = str(tmp_path / "short.pcd")
+    ascii_pcd(path, cloud(6, n=50), repr, npts=60)
+    calls = []
+    native = pcd._native_parser()
+
+    def counting(*args):
+        calls.append(native(*args))
+        return calls[-1]
+    with mock.patch.object(pcd, "_native_parser", lambda: counting):
+        with pytest.raises(ValueError):
+            pcd.load_pcd(path)
+    assert calls == [150]
+    with pytest.raises(ValueError):
+        jpcd.load_pcd(path)
+
+
+def test_cli_staged_route(tmp_path, capsys):
+    """--staged takes detect(staged=True): the four-line report, and the
+    same grasps (CSV) as the default route on the same draws."""
+    path = str(tmp_path / "scene.pcd")
+    cam = scene_pcd(path, seed=2)
+    cfg = tmp_path / "three.cfg"
+    cfg.write_text(CFG.format(x=cam[0], y=cam[1], z=cam[2]))
+    csvs = [str(tmp_path / "default.csv"), str(tmp_path / "staged.csv")]
+    assert main([str(cfg), path, csvs[0]], device="cpu") == -1    # no file
+    normals_csv = str(tmp_path / "normals.csv")
+    np.savetxt(normals_csv, np.tile([0.0, 0.0, 1.0],
+                                    (len(pcd.load_cloud_file(path)), 1)),
+               delimiter=",")
+    capsys.readouterr()
+    with mock.patch.object(GraspDetector, "_detect_staged",
+                           side_effect=GraspDetector._detect_staged,
+                           autospec=True) as staged:
+        assert main([str(cfg), path, normals_csv, csvs[0]], device="cpu") == 0
+        assert staged.call_count == 0
+        default = capsys.readouterr().out
+        assert main([str(cfg), path, normals_csv, csvs[1], "--staged"],
+                    device="cpu") == 0
+        assert staged.call_count == 1
+    text = capsys.readouterr().out
+    assert " 1. Candidate generation + descriptors + classification" in default
+    report = text[text.index("Selected the"):].splitlines()
+    assert [r.split(":")[0] for r in report[1:]] == [
+        "======== RUNTIMES ========", " 1. Candidate generation",
+        " 2. Descriptors/images", " 3. Classification", "==========",
+        " TOTAL"]
+    rows = open(csvs[1]).read()
+    assert rows == open(csvs[0]).read() and rows.count("\n") >= 1
+
+
+LATTICE_CFG = """
+voxelize = 0
+normals_radius = 0.008
+nn_radius = 0.015
+num_samples = 24
+camera_position = {x} {y} {z}
+"""
+
+
+def test_generate_candidates_against_gpd_tpu(tmp_path, capsys):
+    """generate_candidates on a written PCD of the dyadic lattice tube
+    (both packages preprocess it to the same cloud), the port with
+    gpd_tpu's subsample: the same count line and the same CSV within
+    1e-5."""
+    assert gen([], device="cpu") == -1
+    assert "Usage" in capsys.readouterr().out
+    pts, _, vp = lattice_shell()
+    path = str(tmp_path / "tube.pcd")
+    ascii_pcd(path, pts, repr)
+    cfg = tmp_path / "gen.cfg"
+    cfg.write_text(LATTICE_CFG.format(x=vp[0, 0], y=vp[0, 1], z=vp[0, 2]))
+    out = [str(tmp_path / "theirs.csv"), str(tmp_path / "ours.csv")]
+    assert jgen([str(cfg), path, out[0]]) == 0
+    theirs = capsys.readouterr().out.splitlines()[-1]
+
+    jd = jdet.GraspDetector(str(cfg), params={})
+    jc = jd.preprocess_cloud(pts, view_points=vp[:1], capacity="serve")
+    idx = jpp.subsample_uniform(
+        jax.random.fold_in(jax.random.PRNGKey(0), 4), jc.mask, 24)[0]
+    assert frame_gap_ok(jc, np.asarray(jc.points)[np.asarray(idx)],
+                        jd.cfg.nn_radius_frames).all()
+    idx = torch.from_numpy(np.array(idx)).long()
+    with mock.patch.object(draws, "subsample", lambda g, pool, n: idx):
+        assert gen([str(cfg), path, out[1]], device="cpu") == 0
+    ours = capsys.readouterr().out.splitlines()[-1]
+    assert ours == theirs and ours.startswith("Generated ")
+    assert int(ours.split()[1]) > 0
+    a, b = np.loadtxt(out[0], delimiter=","), np.loadtxt(out[1], delimiter=",")
+    assert a.shape == b.shape == (int(ours.split()[1]), 13)
+    np.testing.assert_allclose(a, b, atol=1e-5)
+    with mock.patch.object(draws, "subsample", lambda g, pool, n: idx):
+        assert gen([str(cfg), path], device="cpu") == 0    # no CSV asked for
+    assert capsys.readouterr().out.splitlines()[-1] == ours

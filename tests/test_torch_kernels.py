@@ -183,3 +183,30 @@ def test_kernels_off_the_main_shapes_on_card(kernel, size, Cp):
         assert torch.equal(counts(out), counts(ref))
         torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
     assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_raster_kernel_at_the_staged_chunk_on_card():
+    """raster_blocks at the staged route's largest chunk, 4096 hands with
+    2048 points and 2048 shadow points each (1.4 GB of output planes)
+    against its plain version."""
+    needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    G, K = 4096, 2048
+
+    def operands(nval):
+        cells = torch.randint(0, SIZE, (G, 4, K), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        inside = torch.rand((G, 1, K), generator=gen, device="cuda") < 0.6
+        idx = torch.where(inside, cells, SIZE).to(torch.int32).contiguous()
+        vals = torch.rand((G, nval, K), generator=gen, device="cuda") * inside
+        return idx, vals.to(torch.bfloat16).contiguous()
+    args = [*operands(6), *operands(3)]
+    ref = img.raster_blocks_ref(*args, size=SIZE)
+    before = img.raster_blocks.launches
+    out = img.raster_blocks(*args, size=SIZE)
+    torch.cuda.synchronize()
+    counts = [4, 9, 14, 16, 18, 20]
+    assert torch.equal(out[:, counts], ref[:, counts])
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    assert img.raster_blocks.launches == before + 1
