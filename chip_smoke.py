@@ -45,21 +45,43 @@ Phases; any failure exits non-zero and prints no result line:
      calc_grasp_descriptors once each at 15 channels; and each PCD scene,
      then a 640 x 480 sensor frame (307200 points), parsed by the native
      and the NumPy route (identical, native in use, each route timed);
-  8. profiler: one 15-channel detect request and one CEM request under
-     profiling.maybe_trace: the device's busy share of each request's
-     window, each span's host time and the device time of the kernels
-     launched inside it, and the device kernels with the most time (ten
-     for detect, five for CEM) with the operators that launched them;
+  8. profiler: one 15-channel detect request and one CEM request (after
+     phase 12, one generate_view and 20 training steps too) under
+     profiling.maybe_trace: the device's busy share of each window, each
+     span's host time and the device time of the kernels launched inside
+     it, and the device kernels with the most time (ten for detect, five
+     for the others) with the operators that launched them;
   9. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
- 10. the kernels line (with each kernel's launches per path), the card
-     line, and the status line last.
+ 10. classify: lenet.score at 512 and 4096 hands, bf16 and f32;
+ 11. data generation: DataGenerator.generate_view at the default
+     DetectorConfig and DataGenConfig on 12 (object, view) units (4 objects
+     of the synthetic zoo, 3 render_view views each, the whole object as
+     mesh cloud): per view attempts, candidates, positives, instances, ms
+     and raster_blocks launches; peak memory; the first view once more from
+     the same seed (labels equal, images within the gate); one attempt's
+     candidates relabeled on the card and on the CPU (>= 99% agreement);
+     one attempt's steps timed apart;
+ 12. training: net.train.fit on the generated instances of views 0-1 from
+     memory (batch 64, lr 1e-3, wd 5e-4, two epochs): ms per step, the
+     loss must fall, held-out (view 2) accuracy; one step on the card and
+     on the CPU from the same parameters and batch, and their gaps;
+ 13. weights: the trained parameters as npz, ONNX (by the convert_weights
+     CLI), a torch state dict and a raw .bin directory; a card detector
+     from each holds them exactly and selects identically on scene 0;
+ 14. scores: in each reference check, the CPU route's images scored on the
+     card and on the CPU at bf16 and f32: float32 logits, and top-k overlap
+     of the card's bf16 scores with the CPU's >= 95%;
+ 15. the kernels line (with each kernel's launches per path, data
+     generation's per view too), the card line, and the status line last.
 
-Before each path of phases 4-7 every kernel's launch count is set
-to 0; it is read just after the path's requests.
+Before each path of phases 4-7 and 11 every kernel's launch count is set
+to 0; it is read just after the path's requests. Phases 9 and 14 run last,
+after the 3-channel phases; 13 runs with them.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,6 +104,11 @@ SLEEP_CYCLES = 100_000_000
 # The one camera of the 3-channel scenes: view_cameras' draw from this
 # seed, 44 degrees above the table.
 CAMERA_SEED = 1000
+# Data generation: objects of the synthetic zoo drawn from this seed, and
+# render_view views per object (the last one held out of training).
+DATAGEN_SEED = 7
+DATAGEN_OBJECTS = 4
+DATAGEN_VIEWS = 3
 # The seed of the sensor-frame PCD that times the two ascii parse routes at
 # the size of one depth frame.
 SENSOR_SEED = 11
@@ -807,6 +834,390 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
         os.path.join(tmp, "cem"))
     read_trace(events, ("cem_rounds", "cem_scoring", "select_and_cluster"),
                "15-channel CEM request", 5)
+def classify_times(torch, lenet, net):
+    """LeNet scores (lenet.score, the classify stage) of 512 and 4096
+    random 15-channel images at bf16 (the card's default) and f32, by
+    cuda_ms."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    parts = []
+    for G in (512, 4096):
+        x = torch.randint(0, 256, (G, 60, 60, 15), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+        for dtype in (torch.bfloat16, torch.float32):
+            ms = cuda_ms(torch, lambda a: lenet.score(net, a, dtype), (x,))
+            parts.append(f"G={G} {str(dtype)[6:]} {ms:.4f} ms")
+    print("classify (lenet.score, packaged 15-channel weights): " +
+          ", ".join(parts))
+
+
+def moved(torch, x, device):
+    """A tensor, None, or a dataclass of tensors (CloudArrays, Grasps) on
+    ``device``."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(device)
+    return type(x)(**{k: moved(torch, v, device) for k, v in vars(x).items()})
+
+
+def datagen_units(torch, syn, det, CloudArrays):
+    """The data-generation work list: DATAGEN_OBJECTS objects of the
+    synthetic zoo (fixed seed), each whole object's points and normals as
+    its mesh cloud, and DATAGEN_VIEWS render_view views per object from
+    view_cameras, preprocessed on the card with their camera as view point
+    into the serving capacity buckets (as the generate_data CLI does: the
+    1000 samples are drawn without replacement from the padded slots)."""
+    rng = np.random.default_rng(DATAGEN_SEED)
+    units = []
+    for name, mpts, mnrm in syn.object_zoo(DATAGEN_OBJECTS, seed=DATAGEN_SEED):
+        mesh = CloudArrays.from_numpy(mpts, normals=mnrm, device="cuda")
+        for v, cam in enumerate(syn.view_cameras(rng, DATAGEN_VIEWS)):
+            view = det.preprocess_cloud(syn.render_view(rng, mpts, mnrm, cam),
+                                        view_points=cam[None],
+                                        capacity="serve")
+            units.append((name, v, view, mesh))
+    return units
+
+
+def datagen_path(torch, img, datagen, units, det):
+    """DataGenerator.generate_view on every unit at the default
+    DataGenConfig, each from its own view_generator: a warm-up on unit 0,
+    then the units with the kernel counts reset. Unit 0 of the run must
+    repeat the warm-up's labels and instance count (images may differ by
+    the kernel's float atomics: the share of differing bytes is printed).
+    Returns (per-unit (images, labels), launches, per-unit raster_blocks
+    launches)."""
+    gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+
+    def run(unit, rng):
+        name, v, view, mesh = unit
+        return gen.generate_view(view, mesh, datagen.view_generator(
+            DATAGEN_SEED, name, v, "cuda"), rng)
+    t0 = time.perf_counter()
+    warm_images, warm_labels = run(units[0], np.random.default_rng(
+        DATAGEN_SEED))
+    print(f"generate_view warm-up: {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(DATAGEN_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(img)
+    out, per_view, total_s = [], [], 0.0
+    for unit in units:
+        before = img.raster_blocks.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, labels = run(unit, rng)
+        dt = time.perf_counter() - t0
+        total_s += dt
+        c = gen.last_counts
+        per_view.append(img.raster_blocks.launches - before)
+        print(f"generate_view {unit[0]} view {unit[1]}: "
+              f"{int(unit[2].mask.sum())} points, attempts {c['attempts']}, "
+              f"candidates {c['candidates']}, positives {c['positives']}, "
+              f"instances kept {len(labels)} ({int(labels.sum())} positive), "
+              f"{dt * 1e3:.2f} ms, raster_blocks launches {per_view[-1]}")
+        if images.shape != (len(labels), 60, 60, 15):
+            fail(f"generate_view gave images {images.shape}")
+        out.append((images, labels))
+    launches = counts(img)
+    n = sum(len(lb) for _, lb in out)
+    print(f"data generation: {len(units)} views, {n} instances in "
+          f"{total_s:.3f} s ({n / total_s:.1f} instances/s, "
+          f"{total_s / len(units) * 1e3:.2f} ms/view); launches {launches}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    if launches["raster_blocks"] < len(units):
+        fail("data generation did not launch raster_blocks on every view")
+    images, labels = out[0]
+    if not np.array_equal(labels, warm_labels):
+        fail("generate_view did not repeat its labels from the same seed")
+    differ = float((images != warm_images).mean())
+    print(f"generate_view repeated from the same seed: labels equal, "
+          f"{len(labels)} instances both times, share of image bytes that "
+          f"differ {differ:.2e}")
+    diff = np.abs(images.astype(np.int32) - warm_images.astype(np.int32))
+    if (diff > 1).mean() >= 5e-3:
+        fail("repeated generate_view images leave the image gate")
+    return out, launches, per_view
+
+
+def relabel_check(torch, detector, cand, datagen, det, unit):
+    """One attempt's candidates of ``unit`` on the card, relabeled by
+    reevaluate_hypotheses on the card and on the CPU (the plain route):
+    label agreement over the valid hands, at least 99%."""
+    name, v, view, mesh = unit
+    cfg = det.effective_config(view)
+    g = datagen.view_generator(DATAGEN_SEED, name, v, "cuda")
+    spos, smask = det.sample_cloud(view, g)
+    grasps, _ = detector.detect_core(view, spos, smask, det.net, g, cfg,
+                                     det.image_cap(spos.shape[0]),
+                                     scores_only=True)
+    card, _ = cand.reevaluate_hypotheses(mesh, grasps, cfg)
+    cpu, _ = cand.reevaluate_hypotheses(moved(torch, mesh, "cpu"),
+                                        moved(torch, grasps, "cpu"), cfg)
+    valid = grasps.valid.cpu()
+    agree = float((card.cpu() == cpu)[valid].float().mean())
+    print(f"relabel check ({name} view {v}): {int(valid.sum())} hands, "
+          f"{int(card.sum())} positive on the card, {int(cpu.sum())} on the "
+          f"CPU, label agreement {agree:.2%}")
+    if agree < 0.99:
+        fail(f"card and CPU relabeling agree on {agree:.2%} of the hands")
+
+
+def datagen_breakdown(torch, detector, cand, datagen, det, unit):
+    """One attempt of generate_view on ``unit``, its steps timed apart on
+    the host clock with a device wait after each: candidates and images
+    (sample_cloud + detect_core), relabeling, the valid labels to the host
+    and the balancing, and the kept rows' images to the host (what
+    generate_view moves; the whole valid prefix, which it does not, is
+    timed last for comparison)."""
+    name, v, view, mesh = unit
+    cfg = det.effective_config(view)
+    g = datagen.view_generator(DATAGEN_SEED, name, v, "cuda")
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    spos, smask = det.sample_cloud(view, g)
+    grasps, images = detector.detect_core(view, spos, smask, det.net, g, cfg,
+                                          det.image_cap(spos.shape[0]))
+    n = int(grasps.valid.sum())
+    t.append(time.perf_counter())
+    labels, _ = cand.reevaluate_hypotheses(mesh, grasps, cfg)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    labels = labels[:n].cpu().numpy()
+    rng = np.random.default_rng(0)
+    keep = rng.permutation(datagen.balance_instances(
+        500, np.nonzero(labels == 1)[0], np.nonzero(labels == 0)[0], rng))
+    t.append(time.perf_counter())
+    kept = images[torch.from_numpy(keep).cuda()].cpu().numpy()
+    t.append(time.perf_counter())
+    prefix = images[:n].cpu().numpy()
+    t.append(time.perf_counter())
+    ms = np.diff(t) * 1e3
+    print(f"generate_view breakdown ({name} view {v}, one attempt, ms): "
+          f"candidates + images {ms[0]:.2f} ({n} valid of {grasps.capacity} "
+          f"hands), relabel {ms[1]:.2f} ({-(-grasps.capacity // 512)} "
+          f"blocks of 512), labels to host + balance {ms[2]:.2f}, kept rows "
+          f"to host {ms[3]:.2f} ({len(kept)} rows, {kept.nbytes / 1e6:.1f} "
+          f"MB); the whole valid prefix would take {ms[4]:.2f} "
+          f"({prefix.nbytes / 1e6:.1f} MB)")
+
+
+def profile_offline(torch, profiling, datagen, train, lenet, det, unit,
+                    params, data, tmp):
+    """One generate_view and 20 training steps (batch 64, f32) under
+    profiling.maybe_trace, each in a span read by read_trace."""
+    name, v, view, mesh = unit
+    gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+
+    def one_view():
+        with profiling.span("generate_view"):
+            gen.generate_view(view, mesh, datagen.view_generator(
+                DATAGEN_SEED, name, v, "cuda"), np.random.default_rng(0))
+            torch.cuda.synchronize()
+    read_trace(traced(profiling, one_view, os.path.join(tmp, "datagen")),
+               ("generate_view",), "generate_view (one view)", 5)
+    net = lenet.params_from_numpy(params, "cuda")
+    opt = train.make_optimizer(net)
+    x = torch.from_numpy(np.concatenate([d[0] for d in data])[:1280]).cuda()
+    y = torch.from_numpy(np.concatenate([d[1] for d in data])[:1280]).cuda()
+
+    def steps():
+        with profiling.span("train_steps"):
+            for i in range(0, len(y), 64):
+                train.train_step(net, opt, x[i:i + 64], y[i:i + 64].long())
+            torch.cuda.synchronize()
+    steps()                                               # warm-up
+    read_trace(traced(profiling, steps, os.path.join(tmp, "train")),
+               ("train_steps",), f"{len(y) // 64} training steps", 5)
+
+
+class Blocks:
+    """An in-memory dataset for net.train: one block."""
+
+    def __init__(self, images, labels):
+        self.images, self.labels = images, labels.astype(np.int32)
+
+    def blocks(self):
+        yield self.images, self.labels
+
+
+def training_path(torch, lenet, train, data, units):
+    """A LeNet from init_params(seed 0) trained on the card through
+    train.fit on views 0-1 of every object (batch 64, lr 1e-3, wd 5e-4,
+    two epochs, from memory): median ms per step (CUDA events between
+    steps), the mean loss of the first and last 100 steps (of each half
+    when there are fewer than 200; it must fall),
+    and accuracy on the held-out views (view 2, the padded tail weighted
+    out). Then one step from the same parameters and batch on the card and
+    on the CPU, and their gaps. Returns the trained parameters."""
+    held = [i for i, u in enumerate(units) if u[1] == DATAGEN_VIEWS - 1]
+    fit_on = [i for i in range(len(units)) if i not in held]
+
+    def blocks(idx):
+        return Blocks(np.concatenate([data[i][0] for i in idx]),
+                      np.concatenate([data[i][1] for i in idx]))
+    train_set, held_set = blocks(fit_on), blocks(held)
+    losses, events = [], []
+
+    def on_step(step, loss, acc):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = train.fit(train_set, None, 15, epochs=2, batch_size=64, lr=1e-3,
+                       weight_decay=5e-4, seed=0, device="cuda",
+                       on_step=on_step)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    steps = np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    loss = torch.stack(losses).cpu().numpy()
+    w = min(100, len(loss) // 2)
+    first, last = float(loss[:w].mean()), float(loss[-w:].mean())
+    net = lenet.params_from_numpy(params, "cuda")
+    held_loss, held_acc = train.evaluate(net, held_set)
+    print(f"training: {len(train_set.labels)} instances, {len(loss)} steps "
+          f"of 64 in {total:.3f} s, median {np.median(steps):.3f} ms/step "
+          f"(p90 {np.percentile(steps, 90):.3f}); mean loss of the first "
+          f"{w} steps {first:.4f}, of the last {w} {last:.4f}; held-out views "
+          f"({len(held_set.labels)} instances): loss {held_loss:.4f}, "
+          f"accuracy {held_acc:.4f}")
+    if not last < first:
+        fail("the training loss did not fall")
+
+    p0 = lenet.init_params(torch.Generator().manual_seed(1), 15)
+    x = torch.from_numpy(train_set.images[:64])
+    y = torch.from_numpy(train_set.labels[:64].astype(np.int64))
+    ref = float64_grads(torch, p0, x, y)
+    stepped = {}
+    for device in ("cuda", "cpu"):
+        net = lenet.params_from_numpy(p0, device)
+        loss, _ = train.train_step(net, train.make_optimizer(net),
+                                   x.to(device), y.to(device))
+        grads = dict(zip(p0, (v.grad.cpu().double()
+                              for v in net.parameters())))
+        gaps = {k: float((grads[k] - ref[k]).abs().max() /
+                         ref[k].abs().max()) for k in p0}
+        worst = max(gaps, key=gaps.get)
+        stepped[device] = (float(loss), grads, lenet.params_to_numpy(net))
+        print(f"one step on the {device}: loss {float(loss):.6f}; gradients "
+              f"against float64, relative to each tensor's largest entry: "
+              f"worst {worst} {gaps[worst]:.2e}, the others <= "
+              f"{max(v for k, v in gaps.items() if k != worst):.2e}")
+    (lc, gc, pc), (lh, gh, ph) = stepped["cuda"], stepped["cpu"]
+    g_gap = max(float((gc[k] - gh[k]).abs().max() / gh[k].abs().max())
+                for k in gh)
+    p_gap = max(float(np.abs(pc[k] - ph[k]).max()) for k in ph)
+    print(f"one step card vs CPU (same parameters and batch): max gradient "
+          f"gap {g_gap:.2e} of each tensor's largest, max parameter gap "
+          f"{p_gap:.2e} (Adam's first step is lr * g / (|g| + eps): 1e-3 "
+          f"where a tiny gradient flips sign)")
+    if not np.isfinite([lc, lh, g_gap, p_gap]).all():
+        fail("the card-vs-CPU training step is not finite")
+    return params
+
+
+def float64_grads(torch, params, x, y):
+    """Gradients of the mean cross-entropy of the LeNet at ``params`` on
+    one batch, in float64 on the CPU: the reference of the card's and the
+    CPU's float32 step."""
+    F = torch.nn.functional
+    P = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+         for k, v in params.items()}
+    h = x.permute(0, 3, 1, 2).double() / 256
+    for c in ("conv1", "conv2"):
+        h = F.max_pool2d(F.relu(F.conv2d(h, P[c + "_w"], P[c + "_b"])), 2)
+    h = F.relu(F.linear(h.flatten(1), P["fc1_w"], P["fc1_b"]))
+    F.cross_entropy(F.linear(h, P["fc2_w"], P["fc2_b"]), y).backward()
+    return {k: v.grad for k, v in P.items()}
+
+
+def weights_path(torch, syn, lenet, detector, GraspDetector, DetectorConfig,
+                 convert_weights, params, tmp):
+    """The trained parameters written as npz, converted to ONNX by the
+    convert_weights CLI, and written as a torch state dict and a raw .bin
+    directory. A card detector built from each format must hold exactly
+    the npz's parameters, and score one 15-channel request's candidates
+    (scene 0, from the npz detector's detect_core) into identical
+    selections."""
+    paths = {"npz": os.path.join(tmp, "trained.npz"),
+             "onnx": os.path.join(tmp, "trained.onnx"),
+             "pt": os.path.join(tmp, "trained.pt"),
+             "bin": os.path.join(tmp, "trained_bin")}
+    lenet.save_params_npz(paths["npz"], params)
+    if convert_weights.main([paths["npz"], paths["onnx"], "15"]) != 0:
+        fail("convert_weights did not write the ONNX file")
+    torch.save({name: torch.from_numpy(params[key])
+                for name, key in lenet.TORCH_NAMES.items()}, paths["pt"])
+    os.makedirs(paths["bin"])
+    for key, name in lenet.BIN_NAMES.items():
+        params[key].tofile(os.path.join(paths["bin"], name))
+    dets = {fmt: GraspDetector(DetectorConfig(weights_file=path),
+                               device="cuda") for fmt, path in paths.items()}
+    ref = dets["npz"]
+    p, cs, vp = scene(syn, 0)
+    cloud = ref.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    cfg = ref.effective_config(cloud)
+    gen = seeded(torch, 0)
+    spos, smask = ref.sample_cloud(cloud, gen)
+    grasps, images = detector.detect_core(cloud, spos, smask, ref.net, gen,
+                                          cfg, ref.image_cap(spos.shape[0]))
+    selected = {}
+    for fmt, det in dets.items():
+        held = lenet.params_to_numpy(det.net)
+        if set(held) != set(params) or not all(
+                np.array_equal(held[k], params[k]) for k in params):
+            fail(f"the {fmt} detector does not hold the trained parameters")
+        scores = lenet.score(det.net, images)
+        g = detector.select_and_cluster(dataclasses.replace(
+            grasps, score=torch.where(grasps.valid, scores, -torch.inf)), cfg)
+        selected[fmt] = g.to_host()
+    a = selected["npz"]
+    for fmt, b in selected.items():
+        if not (np.array_equal(a.valid, b.valid) and np.array_equal(
+                a.position, b.position) and np.array_equal(a.score, b.score)):
+            fail(f"the {fmt} detector selects other grasps than the npz's")
+    print(f"weights: npz, onnx (convert_weights CLI), pt and bin detectors "
+          f"hold identical parameters; {int(grasps.valid.sum())} candidates "
+          f"of scene 0 scored by each give identical selections "
+          f"({int(a.valid.sum())} grasps, top score "
+          f"{float(a.score[a.valid].max()):.4f})")
+
+
+def score_check(torch, lenet, cpu_net, card_net, images, k_cap):
+    """The same images (the CPU route's) scored on the card and on the CPU
+    at bf16 and at f32: the logits' dtype, distinct scores against
+    distinct images, max |score gap|, and top-k overlap of the card's bf16
+    scores with the CPU's bf16 (must be >= 95%) and f32 scores."""
+    n = len(images)
+    x = torch.from_numpy(images)
+    logits = card_net(x.cuda())
+    if logits.dtype != torch.float32:
+        fail(f"the card's logits are {logits.dtype}")
+    s = {("card", "bf16"): lenet.score(card_net, x.cuda()).cpu(),
+         ("card", "f32"): lenet.score(card_net, x.cuda(), torch.float32).cpu(),
+         ("cpu", "bf16"): lenet.score(cpu_net, x, torch.bfloat16),
+         ("cpu", "f32"): lenet.score(cpu_net, x)}
+    k = max(1, min(k_cap, n // 2))
+
+    def top(t):
+        return set(torch.argsort(-t, stable=True)[:k].tolist())
+
+    def gap(a, b):
+        return float((s[a] - s[b]).abs().max())
+    overlap = len(top(s["card", "bf16"]) & top(s["cpu", "bf16"])) / k
+    overlap32 = len(top(s["card", "bf16"]) & top(s["cpu", "f32"])) / k
+    n_images = len(np.unique(images.reshape(n, -1), axis=0))
+    print(f"  scores of {n} hands: card logits {logits.dtype}; distinct "
+          f"scores card bf16 {len(np.unique(s['card', 'bf16']))}, f32 "
+          f"{len(np.unique(s['card', 'f32']))}, of {n_images} distinct "
+          f"images; max |gap| card-CPU bf16 {gap(('card', 'bf16'), ('cpu', 'bf16')):.2e}"
+          f", f32 {gap(('card', 'f32'), ('cpu', 'f32')):.2e}, card bf16 - "
+          f"CPU f32 {gap(('card', 'bf16'), ('cpu', 'f32')):.2e}; top-{k} "
+          f"overlap card bf16 with CPU bf16 {overlap:.1%}, with CPU f32 "
+          f"{overlap32:.1%}")
+    if overlap < 0.95:
+        fail(f"the card's top-{k} shares {overlap:.1%} with the CPU's")
+
+
 def reset_counts(img):
     for name in KERNELS:
         getattr(img, name).launches = 0
@@ -839,9 +1250,10 @@ def stage_breakdown(torch, det, prepare, kernel, label):
         f"{kernel.launches - before} image chunks")
 
 
-def reference_check(torch, syn, GraspDetector, detector, cfg, kernel):
+def reference_check(torch, syn, lenet, GraspDetector, detector, cfg, kernel):
     """Grasp images of one small scene's hands, from the card's kernel route
-    and from the CPU's plain route on the same inputs."""
+    and from the CPU's plain route on the same inputs; then the CPU route's
+    images scored on the card and on the CPU (score_check)."""
     cpu = GraspDetector(cfg, device="cpu")
     rng = np.random.default_rng(7)
     pts, nrm = syn.make_scene(rng, n_objects=2, points_per_object=1500,
@@ -858,15 +1270,11 @@ def reference_check(torch, syn, GraspDetector, detector, cfg, kernel):
     g = detector._compact_hands(grasps, cpu.image_cap(spos.shape[0]))
     ref = detector._images_for(cloud, g, *inputs, ecfg).numpy()
 
-    def to_cuda(x):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x.cuda()
-        return type(x)(**{k: to_cuda(v) for k, v in vars(x).items()})
     before = kernel.launches
-    out = detector._images_for(to_cuda(cloud), to_cuda(g),
-                               *[to_cuda(t) for t in inputs], ecfg)
+    out = detector._images_for(moved(torch, cloud, "cuda"),
+                               moved(torch, g, "cuda"),
+                               *[moved(torch, t, "cuda") for t in inputs],
+                               ecfg)
     out = out.cpu().numpy()
     if kernel.launches == before:
         fail("reference check did not reach the kernel")
@@ -879,6 +1287,8 @@ def reference_check(torch, syn, GraspDetector, detector, cfg, kernel):
           f"{int(diff.max())}, share |diff|>1 = {frac:.2e}")
     if frac >= 5e-3:
         fail("card images diverge from the CPU route")
+    score_check(torch, lenet, cpu.net, GraspDetector(cfg, device="cuda").net,
+                ref[g.valid.numpy()], cfg.num_selected)
 
 
 def main():
@@ -895,14 +1305,17 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    from gpd_tpu_torch import api, cem, detector, profiling
-    from gpd_tpu_torch.apps import cem_detect_grasps, detect_grasps
-    from gpd_tpu_torch.apps import generate_candidates
+    from gpd_tpu_torch import api, cem, datagen, detector, profiling
+    from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
+    from gpd_tpu_torch.apps import detect_grasps, generate_candidates
     from gpd_tpu_torch.config import CEMConfig, DetectorConfig, ImageGeometry
+    from gpd_tpu_torch.core.types import CloudArrays
     from gpd_tpu_torch.datasets import synthetic as syn
     from gpd_tpu_torch.detector import GraspDetector
     from gpd_tpu_torch.io import pcd
+    from gpd_tpu_torch.net import lenet, train
     from gpd_tpu_torch.ops import _build
+    from gpd_tpu_torch.ops import candidates as cand
     from gpd_tpu_torch.ops import images as img
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -935,6 +1348,15 @@ def main():
                "CEM, 15 channels": cem_path(torch, img, syn, det, cem,
                                             CEMConfig),
                "staged, 15 channels": staged_path(torch, img, syn, det)}
+    classify_times(torch, lenet, det.net)
+
+    units = datagen_units(torch, syn, det, CloudArrays)
+    data, launches_gen, per_view = datagen_path(torch, img, datagen, units,
+                                                det)
+    by_path[f"generate_view, 15 channels ({len(units)} views)"] = launches_gen
+    relabel_check(torch, detector, cand, datagen, det, units[0])
+    datagen_breakdown(torch, detector, cand, datagen, det, units[1])
+    trained = training_path(torch, lenet, train, data, units)
 
     with tempfile.TemporaryDirectory() as tmp:
         paths, cam = single_camera_scenes(syn, pcd, tmp, (100, 0, 1, 2))
@@ -961,10 +1383,14 @@ def main():
         api_15ch(api, DetectorConfig, pcd, paths[1], cam)
         pcd_routes(pcd, paths[1:] + [sensor_frame_pcd(pcd, tmp)])
         profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp)
+        profile_offline(torch, profiling, datagen, train, lenet, det,
+                        units[1], trained, data, tmp)
+        weights_path(torch, syn, lenet, detector, GraspDetector,
+                     DetectorConfig, convert_weights, trained, tmp)
 
-    reference_check(torch, syn, GraspDetector, detector,
+    reference_check(torch, syn, lenet, GraspDetector, detector,
                     DetectorConfig(num_samples=32), img.raster_blocks)
-    reference_check(torch, syn, GraspDetector, detector,
+    reference_check(torch, syn, lenet, GraspDetector, detector,
                     DetectorConfig(num_samples=32, image_geometry=ImageGeometry(
                         num_channels=3)), img.raster_sums)
 
@@ -975,6 +1401,8 @@ def main():
     for name, e in entries.items():
         e["launches_by_path"] = {path: launches[name]
                                  for path, launches in by_path.items()}
+    entries["raster_blocks"]["launches_by_path"][
+        "generate_view, 15 channels, per view"] = per_view
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_ratio", "launches_by_path", "staged_chunk", "note")

@@ -380,10 +380,9 @@ class GraspDetector:
     """End-to-end detector (reference: include/gpd/grasp_detector.h).
 
     ``params`` is a gpd_tpu parameter dict of numpy arrays (see
-    ``lenet.params_from_numpy``); by default the configured .npz weights,
-    else the packaged checkpoint, else (as gpd_tpu, with its WARNING)
-    ``lenet.init_params`` from a generator seeded with 0. ``device``
-    defaults to CUDA and raises without it."""
+    ``lenet.params_from_numpy``); by default the configured weights
+    (``_default_params``). ``device`` defaults to CUDA and raises without
+    it."""
 
     def __init__(self, config, params=None, device=None):
         if isinstance(config, str):
@@ -397,23 +396,24 @@ class GraspDetector:
         self.last_counts = {}
 
     def _default_params(self):
-        """The configured .npz weights, else the packaged checkpoint, else
-        random init (gpd_tpu/detector.py:570-592)."""
-        ig = self.cfg.image_geometry
-        path = self.cfg.weights_file
-        if path.endswith(".npz") and os.path.exists(path):
-            return lenet.load_params_npz(path)
-        reason = (f"weights_file {path!r} is not an .npz checkpoint" if path
-                  else "no weights_file configured")
-        default = lenet.default_params_path(ig.num_channels)
-        if os.path.exists(default):
-            if path:
-                print(f"NOTE: {reason}; using packaged checkpoint {default}.")
-            return lenet.load_params_npz(default)
-        print(f"WARNING: could not load classifier weights ({reason}); "
-              f"using random initialization.")
-        return lenet.init_params(torch.Generator().manual_seed(0),
-                                 ig.num_channels, ig.size)
+        """The configured weights in any format ``lenet.load_params`` reads;
+        else (no weights_file, or one that is missing, unreadable or of an
+        unknown kind) the packaged checkpoint with a NOTE, else random init
+        with a WARNING: gpd_tpu/detector.py:570-592."""
+        C = self.cfg.image_geometry.num_channels
+        try:
+            if not self.cfg.weights_file:
+                raise FileNotFoundError("no weights_file configured")
+            return lenet.load_params(self.cfg.weights_file, C)
+        except (FileNotFoundError, ValueError, OSError) as e:
+            default = lenet.default_params_path(C)
+            if os.path.exists(default):
+                print(f"NOTE: {e}; using packaged checkpoint {default}.")
+                return lenet.load_params_npz(default)
+            print(f"WARNING: could not load classifier weights ({e}); "
+                  f"using random initialization.")
+            return lenet.init_params(torch.Generator().manual_seed(0), C,
+                                     self.cfg.image_geometry.size)
 
     def _generator(self, generator: Optional[torch.Generator]):
         if generator is not None:

@@ -332,3 +332,76 @@ def search_hands_with_frames(cloud, sample_pos, frames, fvalid,
         sample_id=torch.repeat_interleave(
             torch.arange(S, device=sample_pos.device), M),
     )
+
+
+def _reevaluate_block(points, normals, pmask, g_sample, g_R, g_top, g_mid,
+                      g_valid, radius: float, params: SearchParams, k: int):
+    """HandSearch::reevaluateHypotheses (hand_search.cpp:66-134,190-228) on
+    one block of grasps: each stored hand re-checked against a (ground-
+    truth) cloud at its stored finger placement and top depth, over the
+    exact radius neighbourhood (a dropped contact point would flip a
+    label). Returns (full, half) antipodal flags."""
+    idx, nvalid = radius_neighbors(g_sample, g_valid, points, pmask,
+                                   radius=radius, k=k)
+    rel = points[idx] - g_sample[:, None, :]
+    pts = torch.einsum("gkj,gji->gki", rel, g_R)
+    ny = torch.einsum("gkj,gj->gk", normals[idx], g_R[..., :, 1])
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    hcrop = nvalid & (z > -params.hand_height) & (z < params.hand_height)
+
+    fs = torch.tensor(params.spacing, dtype=torch.float32, device=x.device)
+    fw = float(np.float32(params.finger_width))
+    P = params.num_placements
+    bite = g_top
+    fs_l = fs[g_mid]
+    fs_r = fs[g_mid + P]
+
+    crop = hcrop & (x < bite[:, None])
+    abort = torch.any(hcrop & (x < (bite - params.hand_depth)[:, None]),
+                      dim=-1)
+    any_crop = torch.any(crop, dim=-1)
+    coll_l = torch.any(crop & (y > fs_l[:, None]) & (y < (fs_l + fw)[:, None]),
+                       dim=-1)
+    coll_r = torch.any(crop & (y > fs_r[:, None]) & (y < (fs_r + fw)[:, None]),
+                       dim=-1)
+    feasible = any_crop & ~abort & ~coll_l & ~coll_r & torch.any(nvalid,
+                                                                 dim=-1)
+    bottom = bite - params.hand_depth
+    left = fs_l + fw
+    right = fs_r
+    closing = hcrop & (x > bottom[:, None]) & (x < bite[:, None]) & \
+        (y > left[:, None]) & (y < right[:, None])
+    has_close = torch.any(closing, dim=-1)
+
+    full, half = _antipodal_label(x, y, z, ny, closing, params)
+    ok = feasible & has_close & g_valid
+    return ok & full, ok & half
+
+
+def reevaluate_hypotheses(cloud, grasps: Grasps, cfg: DetectorConfig,
+                          block: int = 512):
+    """Ground-truth labels of stored grasps against ``cloud`` (the port of
+    gpd_tpu/ops/candidates.py:422-502). Grasps run in blocks of ``block``,
+    the last one padded with samples at 1e6 and valid=False, so the (B, K)
+    neighbourhood tensors stay bounded at any mesh size and neighbour cap
+    (``cfg.search_neighbors_cap``). Returns (labels (G,) int32,
+    1 = full-antipodal; the Grasps with both antipodal flags replaced)."""
+    params = SearchParams.from_config(cfg)
+    G = grasps.capacity
+    pad = -G % block if G > block else 0
+
+    def padded(a, value=0):
+        return torch.cat([a, a.new_full((pad,) + a.shape[1:], value)])
+
+    cols = (padded(grasps.sample, 1e6), padded(grasps.orientation),
+            padded(grasps.top), padded(grasps.finger_placement),
+            padded(grasps.valid, False))
+    parts = [_reevaluate_block(cloud.points, cloud.normals, cloud.mask,
+                               *(c[b:b + block] for c in cols),
+                               cfg.hand_search_radius, params,
+                               cfg.search_neighbors_cap)
+             for b in range(0, G + pad, block)]
+    full = torch.cat([p[0] for p in parts])[:G]
+    half = torch.cat([p[1] for p in parts])[:G]
+    return full.to(torch.int32), dataclasses.replace(
+        grasps, full_antipodal=full, half_antipodal=half)

@@ -67,9 +67,9 @@ def select_top_k(grasps: Grasps, k: int, out_cap: int = 0
     return dataclasses.replace(g, valid=g.valid & keep), order
 
 
-def _cluster_kernel(pos, axis, score, valid, min_inliers: int):
-    """Non-greedy clustering (clustering.cpp remove_inliers=false): every
-    hand gathers its aligned, nearby, axis-projected-close partners."""
+def _pairs(pos, axis, valid):
+    """(G, G) bool: hand j is an inlier of hand i's cluster: aligned axes,
+    near, and close after projecting out i's axis; never i itself."""
     G = pos.shape[0]
     cos_thresh = math.cos(12.0 * math.pi / 180.0)
     MAX_DIST = 0.05
@@ -82,32 +82,67 @@ def _cluster_kernel(pos, axis, score, valid, min_inliers: int):
         torch.einsum("id,ijd->ij", axis, delta)[..., None]
     proj_ok = torch.linalg.vector_norm(proj, dim=-1) <= PROJ_DIST
     pair = aligned & dist_ok & proj_ok & valid[:, None] & valid[None, :]
-    pair = pair & ~torch.eye(G, dtype=torch.bool, device=pos.device)
+    return pair & ~torch.eye(G, dtype=torch.bool, device=pos.device)
 
-    n = torch.sum(pair, dim=1)
+
+def _cluster_stats(inl, pos, score):
+    """Inlier count, mean position and 99%-confidence lower bound of the
+    mean score of each row's inliers ``inl`` (R, G). Sums run over the
+    inliers only: invalid rows carry score -inf, and a product inl @ score
+    would make 0 * -inf = NaN in every row (gpd_tpu's select.py:102 does,
+    when fewer hands than the selection cap are valid). The variance is
+    centred (two-pass): E[s^2] - E[s]^2 cancels in f32 for tight clusters
+    (a 1-inlier cluster's std must be exactly 0)."""
+    n = torch.sum(inl, dim=1)
     nf = torch.clamp(n, min=1).to(torch.float32)
-    pf = pair.to(torch.float32)
-    mean_pos = (pf @ pos) / nf[:, None]
-    # Summed over the pairs only: invalid rows carry score -inf, and a
-    # product pair @ score would make 0 * -inf = NaN in every row (gpd_tpu's
-    # select.py:102 does, when fewer hands than the selection cap are valid).
-    mean_s = torch.sum(torch.where(pair, score[None, :], 0.0), dim=1) / nf
-    # Centered (two-pass) variance: E[s^2] - E[s]^2 cancels in f32 for
-    # tight clusters (a 1-inlier cluster's std must be exactly 0).
-    d = score[None, :] - mean_s[:, None]                      # (G, G)
-    var = torch.sum(torch.where(pair, d * d, 0.0), dim=1) / nf
+    mean_pos = (inl.to(torch.float32) @ pos) / nf[:, None]
+    mean_s = torch.sum(torch.where(inl, score[None, :], 0.0), dim=1) / nf
+    d = score[None, :] - mean_s[:, None]
+    var = torch.sum(torch.where(inl, d * d, 0.0), dim=1) / nf
     std = torch.sqrt(torch.clamp(var, min=0.0))
-    conf_lb = mean_s - 2.576 * std / torch.sqrt(nf)
-    ok = valid & (n >= min_inliers)
-    return ok, mean_pos, conf_lb, n
+    return n, mean_pos, mean_s - 2.576 * std / torch.sqrt(nf)
 
 
-def cluster_grasps(grasps: Grasps, min_inliers: int) -> Grasps:
+def _cluster_kernel(pos, axis, score, valid, min_inliers: int,
+                    remove_inliers: bool = False):
+    """Clustering (clustering.cpp): without ``remove_inliers`` every hand
+    gathers its partners (the non-greedy form); with it, a greedy pass in
+    hand order in which the inliers of an accepted cluster are unavailable
+    to later ones (gpd_tpu/select.py:113-141). Returns (ok, mean position,
+    confidence bound, inlier count); a rejected greedy hand keeps its own
+    position and score."""
+    pair = _pairs(pos, axis, valid)
+    if not remove_inliers:
+        n, mean_pos, conf_lb = _cluster_stats(pair, pos, score)
+        return valid & (n >= min_inliers), mean_pos, conf_lb, n
+    # One hand at a time on the device, no host read: it runs on the
+    # selected hands only (num_selected rows).
+    G = pos.shape[0]
+    used = torch.zeros(G, dtype=torch.bool, device=pos.device)
+    ok = torch.zeros_like(used)
+    mp, cl = pos.clone(), score.clone()
+    cnt = torch.zeros(G, dtype=torch.int64, device=pos.device)
+    for i in range(G):
+        inl = pair[i] & ~used
+        n, mean_pos, conf = _cluster_stats(inl[None], pos, score)
+        accept = valid[i] & (n[0] >= min_inliers)
+        used = torch.where(accept, used | inl, used)
+        ok[i] = accept
+        mp[i] = torch.where(accept, mean_pos[0], pos[i])
+        cl[i] = torch.where(accept, conf[0], score[i])
+        cnt[i] = n[0]
+    return ok, mp, cl, cnt
+
+
+def cluster_grasps(grasps: Grasps, min_inliers: int,
+                   remove_inliers: bool = False) -> Grasps:
     """Grasp NMS/aggregation (clustering.cpp:5-105): a cluster center keeps
     hand i's orientation, takes the mean inlier position, and scores by the
-    99%-confidence lower bound mean - 2.576 sigma / sqrt(n)."""
+    99%-confidence lower bound mean - 2.576 sigma / sqrt(n);
+    ``remove_inliers`` takes the greedy form."""
     ok, mean_pos, conf_lb, _ = _cluster_kernel(
-        grasps.position, grasps.axis, grasps.score, grasps.valid, min_inliers)
+        grasps.position, grasps.axis, grasps.score, grasps.valid, min_inliers,
+        remove_inliers)
     return dataclasses.replace(
         grasps,
         position=torch.where(ok[:, None], mean_pos, grasps.position),

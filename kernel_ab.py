@@ -13,6 +13,9 @@ wrappers, images.raster_blocks, images.raster_sums and images.raster_sums2,
 so any commits of the port compare. The build prints each tree's
 raster_sums register lines.
 
+Then each tree's LeNet classify (lenet.score, its own default precision,
+the packaged 15-channel weights) at 512 and 4096 random images.
+
 Shapes: raster_blocks as the 15-channel path calls it (512 hands,
 Km = Ks = 2048, with shadows); raster_sums at 60x60 cells and K = 2048 for
 Cp = 4 (3 channels) and Cp = 2 (1 channel), and raster_sums2 (two row sets)
@@ -33,14 +36,16 @@ import sys
 import chip_smoke
 
 
-def images_of(tree):
-    """gpd_tpu_torch.ops.images as the copy of the repo in `tree` has it."""
+def port_of(tree):
+    """gpd_tpu_torch.ops.images and gpd_tpu_torch.net.lenet as the copy of
+    the repo in `tree` has them."""
     for name in [m for m in sys.modules
                  if m.split(".")[0] == "gpd_tpu_torch"]:
         del sys.modules[name]
     sys.path.insert(0, os.path.abspath(tree))
     try:
-        return importlib.import_module("gpd_tpu_torch.ops.images")
+        return (importlib.import_module("gpd_tpu_torch.ops.images"),
+                importlib.import_module("gpd_tpu_torch.net.lenet"))
     finally:
         sys.path.pop(0)
 
@@ -87,9 +92,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    versions = {os.path.basename(os.path.normpath(tree)): images_of(tree)
-                for tree in sys.argv[1:]}
-    versions["current"] = images_of(os.path.dirname(os.path.abspath(__file__)))
+    ports = {os.path.basename(os.path.normpath(tree)): port_of(tree)
+             for tree in sys.argv[1:]}
+    ports["current"] = port_of(os.path.dirname(os.path.abspath(__file__)))
+    versions = {label: m[0] for label, m in ports.items()}
     build_all(versions)
     img = versions["current"]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -116,6 +122,35 @@ def main():
         compare(torch, f"raster_sums2 Cp={Cp} G=512 empty", versions,
                 lambda m, *a: m.raster_sums2(*a, size), args,
                 img.raster_sums2_ref(*args, size))
+    classify_ab(torch, {label: m[1] for label, m in ports.items()})
+
+
+def classify_ab(torch, lenets):
+    """Each tree's lenet.score (its default precision on the card) with the
+    packaged 15-channel weights on random images at the detector's chunk
+    (512) and the staged route's (4096), in turns; with each tree's max
+    |score gap| to the current one's and its count of distinct scores."""
+    current = lenets["current"]
+    params = current.load_params_npz(current.default_params_path(15))
+    nets = {label: m.params_from_numpy(params, "cuda")
+            for label, m in lenets.items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for G in (512, 4096):
+        x = torch.randint(0, 256, (G, 60, 60, 15), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+        scores = {label: lenets[label].score(net, x)
+                  for label, net in nets.items()}
+        times = {label: [] for label in nets}
+        for label in [*nets, *reversed(nets)]:
+            times[label].append(chip_smoke.cuda_ms(
+                torch, lambda a, m=lenets[label], n=nets[label]: m.score(n, a),
+                (x,)))
+        for label, t in times.items():
+            s = scores[label]
+            print(f"classify G={G} {label}: {' '.join(f'{v:.4f}' for v in t)}"
+                  f" ms; scores {s.dtype}, {len(torch.unique(s))} distinct, "
+                  f"max |gap| to current "
+                  f"{float((s.float() - scores['current']).abs().max()):.4f}")
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ must agree exactly (XOR 0 on valid / full_antipodal / half_antipodal) and
 poses, widths and closing-box coordinates within 1e-5.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,9 +18,10 @@ import torch
 import gpd_tpu.detector as jdet
 import gpd_tpu.ops.candidates as jcand
 from gpd_tpu.config import DetectorConfig as JConfig
+from gpd_tpu.core.types import CloudArrays as JCloud
 from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig
-from gpd_tpu_torch.core.types import CloudArrays
+from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import candidates as cand
 
@@ -35,6 +38,13 @@ def port_cloud(jc):
     return CloudArrays(points=T(jc.points), normals=T(jc.normals),
                        cam_source=T(jc.cam_source).to(torch.int64),
                        mask=T(jc.mask), view_points=T(jc.view_points))
+
+
+def port_grasps(g):
+    """gpd_tpu's Grasps as the port's (on the CPU)."""
+    return Grasps(**{f.name: T(getattr(g, f.name)).to(
+        torch.int64 if f.name in ("sample_id", "finger_placement") else None)
+        for f in dataclasses.fields(Grasps)})
 
 
 def frame_gap_ok(jcloud, spos, radius, min_gap=0.05):
@@ -157,3 +167,87 @@ def test_search_hands_matches_gpd_tpu():
                                    err_msg=f)
     np.testing.assert_array_equal(gt.sample_id.numpy(),
                                   np.repeat(np.arange(32), 8))
+
+
+@pytest.mark.parametrize("num_samples,cap", [(32, 0), (80, 1024), (80, 0)])
+def test_reevaluate_hypotheses_matches_gpd_tpu(num_samples, cap):
+    """Ground-truth relabeling of gpd_tpu's candidates from two views of a
+    cylinder against the whole cylinder (exact normals): both antipodal
+    flags and the labels equal exactly. 32 samples (256 hands, one block)
+    and 80 samples (640 hands, the blocked route with a padded last block),
+    with neighbourhoods of the whole mesh (cap 0: the mesh's capacity) and
+    of its nearest 1024 points."""
+    rng, pts, nrm = thin_cylinder(17)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, CAMS)
+    jc, spos = prepared(p, vp, cs, num_samples, 4)
+    mesh = JCloud.from_numpy(pts, normals=nrm)
+    kw = dict(num_samples=num_samples,
+              search_neighbors_cap=cap or mesh.points.shape[0])
+    g = jcand.search_hands(jc, jnp.asarray(spos),
+                           jnp.ones(num_samples, bool), JConfig(**kw))
+    jl, jg = jcand.reevaluate_hypotheses(mesh, g, JConfig(**kw))
+    tl, tg = cand.reevaluate_hypotheses(port_cloud(mesh),
+                                        port_grasps(g), DetectorConfig(**kw))
+    assert tg.capacity == num_samples * 8 and tl.dtype == torch.int32
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    for f in ("full_antipodal", "half_antipodal"):
+        np.testing.assert_array_equal(getattr(tg, f).numpy(),
+                                      np.asarray(getattr(jg, f)), err_msg=f)
+    np.testing.assert_array_equal(tg.position.numpy(), np.asarray(g.position))
+    assert 0 < int(tl.sum()) < int(np.asarray(g.valid).sum())
+
+
+def greedy_numpy(pos, axis, score, valid, min_inliers):
+    """clustering.cpp's greedy clustering (remove_inliers=true) in float64:
+    hands in order, each taking the partners no accepted cluster took."""
+    pos, axis, score = (np.asarray(a, np.float64) for a in (pos, axis, score))
+    out_pos, out_score = pos.copy(), score.copy()
+    ok = np.zeros(len(pos), bool)
+    used = np.zeros(len(pos), bool)
+    cos12 = np.cos(np.deg2rad(12.0))
+    for i in range(len(pos)):
+        d = pos[i] - pos
+        proj = d - axis[i] * (d @ axis[i])[:, None]
+        inl = (valid & valid[i] & (np.abs(axis @ axis[i]) > cos12)
+               & (np.linalg.norm(d, axis=1) <= 0.05)
+               & (np.linalg.norm(proj, axis=1) <= 0.005) & ~used)
+        inl[i] = False
+        n = inl.sum()
+        if not valid[i] or n < min_inliers:
+            continue
+        ok[i], used = True, used | inl
+        out_pos[i] = pos[inl].mean(0) if n else pos[i]
+        out_score[i] = (score[inl].mean() - 2.576 * score[inl].std() /
+                        np.sqrt(n)) if n else 0.0
+    return out_pos, out_score, ok
+
+
+@pytest.mark.parametrize("n_valid,min_inliers", [(64, 1), (64, 3), (20, 1)])
+def test_greedy_clustering(n_valid, min_inliers):
+    """cluster_grasps(remove_inliers=True) against a float64 evaluation of
+    the greedy pass, and against gpd_tpu's where gpd_tpu is finite (a full
+    batch: with invalid rows at -inf gpd_tpu's sums give NaN)."""
+    from gpd_tpu.core.types import Grasps as JGrasps
+    import gpd_tpu.select as jsel
+    from gpd_tpu_torch import select as tsel
+    from test_torch_detector import cluster_batch, port_grasps as grasps_of
+    b = cluster_batch(n_valid, seed=3)
+    gt = tsel.cluster_grasps(grasps_of(JGrasps(**b)), min_inliers,
+                             remove_inliers=True)
+    pos, score, ok = greedy_numpy(b["position"], b["orientation"][:, :, 2],
+                                  b["score"], b["valid"], min_inliers)
+    assert 2 <= ok.sum() < n_valid
+    np.testing.assert_array_equal(gt.valid.numpy(), ok)
+    np.testing.assert_allclose(gt.position.numpy()[ok], pos[ok], atol=1e-5)
+    np.testing.assert_allclose(gt.score.numpy()[ok], score[ok], atol=1e-5)
+    plain = tsel.cluster_grasps(grasps_of(JGrasps(**b)), min_inliers)
+    assert plain.valid.sum() > gt.valid.sum()
+    if n_valid == len(ok):
+        gj = jsel.cluster_grasps(JGrasps(**{k: jnp.asarray(v)
+                                            for k, v in b.items()}),
+                                 min_inliers, remove_inliers=True)
+        np.testing.assert_array_equal(np.asarray(gj.valid), ok)
+        np.testing.assert_allclose(np.asarray(gj.position),
+                                   gt.position.numpy(), atol=1e-6)
+        np.testing.assert_allclose(np.asarray(gj.score), gt.score.numpy(),
+                                   atol=1e-5)

@@ -306,6 +306,7 @@ def test_cem_prints_the_four_kinds_of_line(capsys):
     sis = tcem.SequentialImportanceSampling(det, CEMConfig(
         num_init_samples=12, num_iterations=3, num_samples_per_iteration=10,
         sampling_method=draws.MAX_OF_GAUSSIANS))
+    capsys.readouterr()             # the detector's weights NOTE
     out = sis.detect(cloud, generator=gen(0))
     lines = capsys.readouterr().out.splitlines()
     counts = sis.last_round_counts

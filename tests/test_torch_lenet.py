@@ -3,6 +3,8 @@ both sides): the packaged 15- and 3-channel checkpoints carried across with
 params_from_numpy, the 3-fc NetCCFFF variant and the conv-without-ReLU
 (Eigen backend) forward, scores within 2e-4."""
 
+import unittest.mock as mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,3 +80,52 @@ def test_init_params_shapes_and_scales(channels):
     assert net.conv1.in_channels == channels
     x = torch.from_numpy(images(channels, n=2))
     assert torch.isfinite(lenet.score(net, x)).all()
+
+
+def test_bf16_logits_are_f32_products_of_rounded_operands():
+    """At compute_dtype=bfloat16 (the card's default) the logits are float32,
+    and the last layer is the float32 product of bf16-rounded operands plus
+    the float32 bias (gpd_tpu's dense, lenet.py:112-116), to 1e-6 of a
+    float64 evaluation of the same rounded operands."""
+    net = lenet.params_from_numpy(
+        lenet.load_params_npz(lenet.default_params_path(15)), device="cpu")
+    calls = []
+    linear = torch.nn.functional.linear
+
+    def spy(x, w, b=None):
+        calls.append((x, w, b))
+        return linear(x, w, b)
+    x = torch.from_numpy(images(15, n=32, seed=2))
+    with mock.patch.object(lenet.F, "linear", spy), torch.no_grad():
+        logits = net(x, torch.bfloat16)
+    assert logits.dtype == torch.float32 and logits.shape == (32, 2)
+    h, w, b = calls[-1]
+    for operand in (h, w):
+        assert operand.dtype == torch.float32
+        assert torch.equal(operand, operand.to(torch.bfloat16).float())
+    assert torch.equal(b, net.fcs[-1].bias)
+    ref = (h.double() @ w.double().T + b.double()).detach()
+    np.testing.assert_allclose(logits.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def test_bf16_scores_against_gpd_tpu():
+    """The packaged 15-channel checkpoint at bfloat16 on both sides: scores
+    within 2e-2 of gpd_tpu's forward(compute_dtype=bfloat16) (the two
+    round the same operands; accumulation orders differ, and an operand
+    near a bf16 boundary rounds to either side), and no fewer distinct
+    scores than gpd_tpu's. The float32 forward stays within 2e-4."""
+    params = lenet.load_params_npz(lenet.default_params_path(15))
+    x = images(15, n=256, seed=3)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    ref = np.asarray(jlenet.forward(jp, jnp.asarray(x),
+                                    compute_dtype=jnp.bfloat16))
+    net = lenet.params_from_numpy(params, device="cpu")
+    out = lenet.score(net, torch.from_numpy(x), torch.bfloat16).numpy()
+    ref_score = ref[:, 1] - ref[:, 0]
+    assert out.dtype == np.float32
+    assert np.abs(out - ref_score).max() < 2e-2
+    assert len(np.unique(out)) >= len(np.unique(ref_score))
+    f32 = lenet.score(net, torch.from_numpy(x)).numpy()
+    ref32 = np.asarray(jlenet.score(jp, jnp.asarray(x)))
+    np.testing.assert_allclose(f32, ref32, atol=2e-4)
