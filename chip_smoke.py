@@ -7,8 +7,8 @@ Phases; any failure exits non-zero and prints no result line:
 
   1. device: one CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel from gpd_tpu_torch/csrc, one nvcc each,
-     and the ascii PCD parser with the host compiler, all started
-     together, and prints the kernels' register and spill lines;
+     and the ascii PCD parser and the C ABI with the host compiler, all
+     started together, and prints the kernels' register and spill lines;
   3. kernels: each kernel against its plain version at the main paths'
      shapes, with its time, the plain version's, one library call's and
      the bound (each timed call reads its inputs from HBM, not the L2):
@@ -33,7 +33,26 @@ Phases; any failure exits non-zero and prints no result line:
      4096 hands, its four-line report and peak memory; it must find
      detect's candidate count on the same generator seed and share >= 90%
      of detect's selection by position (1e-5);
-  7. 3-channel entry point: GraspDetector.detect_file on synthetic
+  7. parallel: a world of one, an NCCL group over a file store on this
+     card, on request 0's scene at the default DetectorConfig:
+     detect_sharded_raw's valid geometry must equal detect_core's on the
+     same samples (same count, 1e-5); sharded_detect_host must select a
+     grasp, all scores finite; CEM with mesh= at the default CEMConfig must
+     find a grasp; 20 training steps of fit with DistributedDataParallel
+     must give the parameters of 20 plain steps (each tensor within 1e-6 of
+     its largest entry). Each against its unsharded call, in turns, with
+     its raster_blocks launches; no multi-card time is measured;
+  8. C ABI: the port's gpd_c_api built with the host compiler against this
+     Python's headers (or one line saying why it was not built, where
+     Python.h is missing), loaded with ctypes, gpd_init("cuda"), a
+     detector from a default config file: gpd_detect_grasps_in_cloud must
+     return capi.detect_in_cloud's rows on scene 0 with seed 0 (geometry
+     1e-5, scores 1e-3), gpd_calc_grasp_descriptors (G, 60, 60, 15) uint8
+     images; a C request timed against capi's and api's;
+  9. test_grasp_image: the app on a one-camera scene PCD on the card at an
+     object point with a valid hand (its pose lines; the PNG where
+     matplotlib imports), then viz's hand geometry on its hands;
+ 10. 3-channel entry point: GraspDetector.detect_file on synthetic
      single-camera table scenes written as PCD files to a temporary
      directory, at the default widths with 3 channels, 1000 samples, the
      packaged 3-channel weights and outlier removal, sampling above the
@@ -45,17 +64,17 @@ Phases; any failure exits non-zero and prints no result line:
      calc_grasp_descriptors once each at 15 channels; and each PCD scene,
      then a 640 x 480 sensor frame (307200 points), parsed by the native
      and the NumPy route (identical, native in use, each route timed);
-  8. profiler: one 15-channel detect request and one CEM request (after
-     phase 12, one generate_view and 20 training steps too) under
+ 11. profiler: one 15-channel detect request and one CEM request (after
+     phase 15, one generate_view and 20 training steps too) under
      profiling.maybe_trace: the device's busy share of each window, each
      span's host time and the device time of the kernels launched inside
      it, and the device kernels with the most time (ten for detect, five
      for the others) with the operators that launched them;
-  9. reference: on small scenes, the card's 15- and 3-channel grasp images
+ 12. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
- 10. classify: lenet.score at 512 and 4096 hands, bf16 and f32;
- 11. data generation: DataGenerator.generate_view at the default
+ 13. classify: lenet.score at 512 and 4096 hands, bf16 and f32;
+ 14. data generation: DataGenerator.generate_view at the default
      DetectorConfig and DataGenConfig on 12 (object, view) units (4 objects
      of the synthetic zoo, 3 render_view views each, the whole object as
      mesh cloud): per view attempts, candidates, positives, instances, ms
@@ -63,22 +82,22 @@ Phases; any failure exits non-zero and prints no result line:
      the same seed (labels equal, images within the gate); one attempt's
      candidates relabeled on the card and on the CPU (>= 99% agreement);
      one attempt's steps timed apart;
- 12. training: net.train.fit on the generated instances of views 0-1 from
+ 15. training: net.train.fit on the generated instances of views 0-1 from
      memory (batch 64, lr 1e-3, wd 5e-4, two epochs): ms per step, the
      loss must fall, held-out (view 2) accuracy; one step on the card and
      on the CPU from the same parameters and batch, and their gaps;
- 13. weights: the trained parameters as npz, ONNX (by the convert_weights
+ 16. weights: the trained parameters as npz, ONNX (by the convert_weights
      CLI), a torch state dict and a raw .bin directory; a card detector
      from each holds them exactly and selects identically on scene 0;
- 14. scores: in each reference check, the CPU route's images scored on the
+ 17. scores: in each reference check, the CPU route's images scored on the
      card and on the CPU at bf16 and f32: float32 logits, and top-k overlap
      of the card's bf16 scores with the CPU's >= 95%;
- 15. the kernels line (with each kernel's launches per path, data
+ 18. the kernels line (with each kernel's launches per path, data
      generation's per view too), the card line, and the status line last.
 
-Before each path of phases 4-7 and 11 every kernel's launch count is set
-to 0; it is read just after the path's requests. Phases 9 and 14 run last,
-after the 3-channel phases; 13 runs with them.
+Before each path of phases 4-10 and 14 every kernel's launch count is set
+to 0; it is read just after the path's requests. Phases 7-9 run after phase
+6, phases 13-15 before phase 10; phases 12 and 17 run last, 16 with them.
 """
 
 import dataclasses
@@ -86,6 +105,7 @@ import json
 import os
 import subprocess
 import sys
+import sysconfig
 import tempfile
 import time
 
@@ -1130,6 +1150,369 @@ def float64_grads(torch, params, x, y):
     return {k: v.grad for k, v in P.items()}
 
 
+def geometry_rows(g):
+    """The valid (position, orientation, width) rows of a Grasps batch,
+    sorted."""
+    h = g.to_host()
+    v = h.valid
+    rows = np.concatenate([h.position[v], h.orientation[v].reshape(-1, 9),
+                           h.width[v, None]], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def host_ms(torch, fn):
+    """(result, host milliseconds of fn() ending in a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def parallel_path(torch, img, syn, det, detector, cem, CEMConfig, lenet,
+                  train, tmp):
+    """parallel/ on a world of one: an NCCL group over a file store on this
+    card (NCCL refuses two ranks on one card). On scene 0 at the default
+    DetectorConfig: detect_sharded_raw's valid geometry against
+    detect_core's on the same samples (same count, 1e-5), sharded_detect_host
+    against detect, CEM with mesh= against CEM without, at the default
+    CEMConfig; then 20 training steps by fit with DistributedDataParallel
+    against 20 plain steps from the same start and batches (every tensor
+    within 1e-6 of its largest entry). Each timed after a warm-up, the
+    unsharded and sharded calls in turns. Returns each sharded path's
+    launch counts."""
+    import torch.distributed as dist
+    from gpd_tpu_torch.parallel import multihost, sharded
+    device = multihost.initialize(f"file://{tmp}/nccl_store", 1, 0)
+    if dist.get_backend() != "nccl" or device.type != "cuda":
+        fail(f"the process group runs {dist.get_backend()} on {device}")
+    mesh = sharded.default_mesh()
+    by_path = {}
+    try:
+        p, cs, vp = scene(syn, 0)
+        cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+        cfg = det.effective_config(cloud)
+        spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
+        cap = det.image_cap(spos.shape[0])
+
+        def core():
+            return detector.detect_core(cloud, spos, smask, det.net,
+                                        seeded(torch, 0), cfg, cap,
+                                        scores_only=True)[0]
+
+        def raw():
+            s_l, m_l = sharded.shard_samples(mesh, spos, smask)
+            return sharded.detect_sharded_raw(
+                sharded.replicate(mesh, cloud), s_l, m_l,
+                sharded.replicate(mesh, det.net), seeded(torch, 0), cfg, cap,
+                mesh)
+
+        def host():
+            return sharded.sharded_detect_host(det, cloud,
+                                               generator=seeded(torch, 0),
+                                               mesh=mesh)
+
+        def plain():
+            return det.detect(cloud, generator=seeded(torch, 0),
+                              verbose=False)
+        for fn in (core, raw, host, plain):
+            fn()                                             # warm-up
+        times = {"detect_core": [], "detect_sharded_raw": [],
+                 "detect": [], "sharded_detect_host": []}
+        for name, fn in (("detect_core", core), ("detect_sharded_raw", raw),
+                         ("detect_sharded_raw", raw), ("detect_core", core),
+                         ("detect", plain), ("sharded_detect_host", host),
+                         ("sharded_detect_host", host), ("detect", plain)):
+            reset_counts(img)
+            out, ms = host_ms(torch, fn)
+            times[name].append(ms)
+            if name in ("detect_sharded_raw", "sharded_detect_host"):
+                by_path[f"{name}, world 1 (NCCL)"] = counts(img)
+            if name == "detect_core":
+                g1 = out
+            elif name == "detect_sharded_raw":
+                gs = out
+            elif name == "sharded_detect_host":
+                sel = out
+        a, b = geometry_rows(g1), geometry_rows(gs)
+        n_raw = by_path["detect_sharded_raw, world 1 (NCCL)"]["raster_blocks"]
+        n_host = by_path["sharded_detect_host, world 1 (NCCL)"][
+            "raster_blocks"]
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else None
+        print(f"parallel (world 1, NCCL): {len(a)} valid hands from "
+              f"detect_core, {len(b)} from detect_sharded_raw, max geometry "
+              f"gap {err}; ms in turns: detect_core "
+              f"{times['detect_core']}, detect_sharded_raw "
+              f"{times['detect_sharded_raw']}; raster_blocks launches "
+              f"{n_raw}")
+        if err is None or err > 1e-5 or not len(a):
+            fail("detect_sharded_raw's geometry is not detect_core's")
+        h = sel.to_host()
+        scores = h.score[h.valid]
+        print(f"parallel: sharded_detect_host selected {int(h.valid.sum())} "
+              f"grasps, top scores {np.round(scores[:5], 3).tolist()}; ms "
+              f"in turns: detect {times['detect']}, sharded_detect_host "
+              f"{times['sharded_detect_host']}; raster_blocks launches "
+              f"{n_host}")
+        if not len(scores) or not np.isfinite(scores).all():
+            fail("sharded_detect_host selected no grasp or a non-finite "
+                 "score")
+
+        sis = {"CEM": cem.SequentialImportanceSampling(det, CEMConfig()),
+               "CEM mesh=": cem.SequentialImportanceSampling(det, CEMConfig(),
+                                                              mesh=mesh)}
+        for s in sis.values():
+            s.detect(cloud, generator=seeded(torch, 0), verbose=False)
+        cem_ms = {name: [] for name in sis}
+        for name in ("CEM", "CEM mesh=", "CEM mesh=", "CEM"):
+            reset_counts(img)
+            out, ms = host_ms(torch, lambda: sis[name].detect(
+                cloud, generator=seeded(torch, 0), verbose=False))
+            cem_ms[name].append(ms)
+            if name == "CEM mesh=":
+                by_path["CEM mesh=, world 1 (NCCL)"] = counts(img)
+                h = out.to_host()
+        s_m, s_p = sis["CEM mesh="], sis["CEM"]
+        print(f"parallel: CEM mesh= round candidates "
+              f"{s_m.last_round_counts} (without: {s_p.last_round_counts}), "
+              f"grasps {s_m.last_num_grasps} (without: "
+              f"{s_p.last_num_grasps}); ms in turns: CEM {cem_ms['CEM']}, "
+              f"CEM mesh= {cem_ms['CEM mesh=']}; raster_blocks launches "
+              f"{by_path['CEM mesh=, world 1 (NCCL)']['raster_blocks']}")
+        if s_m.last_num_grasps < 1 or not np.isfinite(
+                h.score[h.valid]).all():
+            fail("CEM with mesh= found no grasp or a non-finite score")
+
+        rng = np.random.default_rng(12)
+        data = Blocks(rng.integers(0, 256, (20 * 64, 60, 60, 15),
+                                   dtype=np.uint8),
+                      rng.integers(0, 2, 20 * 64))
+
+        def gap(a, b):
+            return max(float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+                       for k in b)
+        # cuDNN's default weight-gradient algorithms add in no fixed order,
+        # so two plain runs differ at rounding level and Adam turns that
+        # into up to 2 lr where a gradient is noise: the comparison runs
+        # with deterministic cuDNN, and the default's plain-vs-plain gap is
+        # printed beside it.
+        fits, step_ms = {}, {}
+        for deterministic, dp in ((False, False), (False, False),
+                                  (True, False), (True, True), (True, True),
+                                  (True, False)):
+            torch.backends.cudnn.deterministic = deterministic
+            events = []
+
+            def on_step(step, loss, acc):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            reset_counts(img)
+            try:
+                params = train.fit(data, None, 15, epochs=1, batch_size=64,
+                                   seed=0, device="cuda", on_step=on_step,
+                                   data_parallel=dp)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            torch.cuda.synchronize()
+            fits.setdefault((deterministic, dp), []).append(params)
+            step_ms.setdefault((deterministic, dp), []).append(float(
+                np.median([a.elapsed_time(b)
+                           for a, b in zip(events, events[1:])])))
+            if dp:
+                by_path["fit data_parallel, world 1 (NCCL)"] = counts(img)
+        g_dp = max(gap(d, fits[True, False][0]) for d in fits[True, True])
+        print(f"parallel: 20 training steps of fit with "
+              f"DistributedDataParallel against 20 plain steps from the "
+              f"same start and batches, deterministic cuDNN: max parameter "
+              f"gap {g_dp:.2e} of each tensor's largest entry (plain vs "
+              f"plain {gap(*fits[True, False]):.2e}; with cuDNN's default "
+              f"algorithms plain vs plain {gap(*fits[False, False]):.2e}); "
+              f"median ms/step in turns: plain {step_ms[True, False]}, DDP "
+              f"{step_ms[True, True]} (default cuDNN, plain: "
+              f"{step_ms[False, False]})")
+        if not g_dp <= 1e-6:
+            fail("DDP training steps differ from plain ones")
+    finally:
+        dist.destroy_process_group()
+    return by_path
+
+
+def c_abi(ctypes):
+    """The port's C ABI library, loaded with its argument types."""
+    from gpd_tpu_torch.ops import _build
+
+    class Grasp(ctypes.Structure):
+        _fields_ = [("position", ctypes.c_double * 3),
+                    ("orientation", ctypes.c_double * 9),
+                    ("sample", ctypes.c_double * 3),
+                    ("width", ctypes.c_double), ("score", ctypes.c_double),
+                    ("full_antipodal", ctypes.c_int),
+                    ("half_antipodal", ctypes.c_int)]
+    lib = _build.load("gpd_c_api")
+    P = ctypes.POINTER
+    lib.gpd_last_error.restype = ctypes.c_char_p
+    lib.gpd_init.argtypes = [ctypes.c_char_p]
+    lib.gpd_detector_create.restype = ctypes.c_int64
+    lib.gpd_detector_create.argtypes = [ctypes.c_char_p]
+    lib.gpd_detector_destroy.argtypes = [ctypes.c_int64]
+    lib.gpd_detect_grasps_in_cloud.argtypes = [
+        ctypes.c_int64, P(ctypes.c_float), ctypes.c_int, P(ctypes.c_float),
+        ctypes.c_int, P(ctypes.c_uint32), P(P(Grasp)), P(ctypes.c_int)]
+    lib.gpd_calc_grasp_descriptors.argtypes = [
+        ctypes.c_int64, P(ctypes.c_float), ctypes.c_int, P(ctypes.c_float),
+        ctypes.c_int, P(P(Grasp)), P(P(ctypes.c_uint8)), P(ctypes.c_int),
+        P(ctypes.c_int), P(ctypes.c_int)]
+    lib.gpd_free.argtypes = [ctypes.c_void_p]
+    return lib, Grasp
+
+
+def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
+    """The port's C ABI loaded with ctypes into this process, gpd_init
+    ("cuda"), a detector from a default config file: on scene 0,
+    gpd_detect_grasps_in_cloud (seed 0) must return capi.detect_in_cloud's
+    rows (seed 0; geometry 1e-5, scores 1e-3: the card's raster sums with
+    float atomics) and gpd_calc_grasp_descriptors (G, 60, 60, 15) uint8
+    images; a C request timed against capi's and api's. Returns each entry
+    point's launch counts."""
+    if why_not_built:
+        print(f"C ABI: not built: {why_not_built}")
+        return {}
+    import ctypes
+    lib, Grasp = c_abi(ctypes)
+    if lib.gpd_init(b"cuda") != 0:
+        fail(f"gpd_init: {lib.gpd_last_error().decode()}")
+    cfg = os.path.join(tmp, "c_abi.cfg")
+    with open(cfg, "w") as f:
+        f.write("# the defaults: 15 channels, 1000 samples\n")
+    h = lib.gpd_detector_create(cfg.encode())
+    if h <= 0:
+        fail(f"gpd_detector_create: {lib.gpd_last_error().decode()}")
+    p, cs, vp = scene(syn, 0)
+    p, vp = np.ascontiguousarray(p, np.float32), np.ascontiguousarray(vp)
+    cs = np.ascontiguousarray(cs, np.uint32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    by_path = {}
+
+    def c_detect():
+        out, n = ctypes.POINTER(Grasp)(), ctypes.c_int(-1)
+        if lib.gpd_detect_grasps_in_cloud(
+                h, p.ctypes.data_as(fp), len(p), vp.ctypes.data_as(fp),
+                len(vp), cs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                ctypes.byref(out), ctypes.byref(n)) != 0:
+            fail(f"gpd_detect_grasps_in_cloud: "
+                 f"{lib.gpd_last_error().decode()}")
+        rows = np.array([list(g.position) + list(g.orientation)
+                         + list(g.sample) + [g.width, g.score,
+                                             g.full_antipodal,
+                                             g.half_antipodal]
+                         for g in out[:n.value]])
+        lib.gpd_free(out)
+        return rows
+    hp = capi.create_detector(cfg)
+    c_detect()                                               # warm-up
+    ms = {"C ABI": [], "capi": [], "api": []}
+    for name in ("C ABI", "capi", "api", "api", "capi", "C ABI"):
+        reset_counts(img)
+        if name == "C ABI":
+            rows, t = host_ms(torch, c_detect)
+            by_path["C ABI gpd_detect_grasps_in_cloud"] = counts(img)
+        elif name == "capi":
+            expect, t = host_ms(torch, lambda: capi.detect_in_cloud(
+                hp, p, vp, cs, seed=0))
+        else:
+            _, t = host_ms(torch, lambda: api.detect_grasps_in_cloud(
+                capi._detectors[hp], p, view_points=vp, cam_source=cs,
+                seed=0))
+        ms[name].append(t)
+    ok = rows.shape == expect.shape and len(rows) > 0
+    geo = float(np.abs(rows[:, :16] - expect[:, :16]).max()) if ok else None
+    sc = float(np.abs(rows[:, 16] - expect[:, 16]).max()) if ok else None
+    print(f"C ABI: gpd_detect_grasps_in_cloud {len(rows)} rows, "
+          f"capi.detect_in_cloud {len(expect)}; max geometry gap {geo}, "
+          f"score gap {sc}, identical {ok and np.array_equal(rows, expect)}; "
+          f"ms in turns: C ABI {ms['C ABI']}, capi {ms['capi']}, api "
+          f"(serving buckets) {ms['api']}; raster_blocks launches "
+          f"{by_path['C ABI gpd_detect_grasps_in_cloud']['raster_blocks']}")
+    if not ok or geo > 1e-5 or sc > 1e-3 or not np.array_equal(
+            rows[:, 17:], expect[:, 17:]):
+        fail("the C ABI's rows are not capi.detect_in_cloud's")
+
+    out, imgs = ctypes.POINTER(Grasp)(), ctypes.POINTER(ctypes.c_uint8)()
+    n, size, chans = ctypes.c_int(-1), ctypes.c_int(-1), ctypes.c_int(-1)
+    reset_counts(img)
+    if lib.gpd_calc_grasp_descriptors(
+            h, p.ctypes.data_as(fp), len(p), vp.ctypes.data_as(fp), len(vp),
+            ctypes.byref(out), ctypes.byref(imgs), ctypes.byref(n),
+            ctypes.byref(size), ctypes.byref(chans)) != 0:
+        fail(f"gpd_calc_grasp_descriptors: {lib.gpd_last_error().decode()}")
+    by_path["C ABI gpd_calc_grasp_descriptors"] = counts(img)
+    shape = (n.value, size.value, size.value, chans.value)
+    images = np.ctypeslib.as_array(imgs, shape=shape).copy() if n.value else \
+        np.zeros(shape, np.uint8)
+    lib.gpd_free(out)
+    lib.gpd_free(imgs)
+    lib.gpd_detector_destroy(h)
+    capi.destroy_detector(hp)
+    print(f"C ABI: gpd_calc_grasp_descriptors {n.value} candidates, images "
+          f"{images.shape} uint8, {int(images.any(axis=(1, 2, 3)).sum())} "
+          f"not blank; raster_blocks launches "
+          f"{by_path['C ABI gpd_calc_grasp_descriptors']['raster_blocks']}")
+    if n.value < 1 or shape[1:] != (60, 60, 15):
+        fail(f"gpd_calc_grasp_descriptors gave images {shape}")
+    return by_path
+
+
+def grasp_image_path(torch, img, syn, pcd, test_grasp_image, viz,
+                     GraspDetector, DetectorConfig, tmp):
+    """The test_grasp_image app on a one-camera scene PCD on the card, at
+    the first of 20 processed object points (above the table) with a valid
+    hand; then viz's geometry (segments, cuboids, image-volume cube, a PLY)
+    on its hands. Returns its launch counts."""
+    rng = np.random.default_rng(0)
+    pts, nrm = syn.make_scene(rng, n_objects=3)
+    p, _, _ = syn.render_fused_views(rng, pts, nrm, syn.view_cameras(rng, 1))
+    path = os.path.join(tmp, "grasp_image_scene.pcd")
+    pcd.save_pcd(path, p)
+    # The app's processed cloud, for its object points' indices.
+    app_det = GraspDetector(DetectorConfig(num_samples=1), device="cuda")
+    cloud = app_det.preprocess_cloud(pcd.load_cloud_file(path),
+                                     view_points=np.zeros((1, 3), np.float32))
+    above = np.nonzero(cloud.points[cloud.mask][:, 2].cpu().numpy() > 0.01)[0]
+    for idx in above[::max(1, len(above) // 20)]:
+        idx, grasps, _ = test_grasp_image.hand_poses(path, int(idx), "cuda")
+        if bool(grasps.valid.any()):
+            break
+    else:
+        fail("test_grasp_image found no object point with a valid hand")
+    reset_counts(img)
+    t0 = time.perf_counter()
+    rc = test_grasp_image.main([path, str(idx),
+                                os.path.join(tmp, "grasp_image.png")])
+    t = time.perf_counter() - t0
+    launches = counts(img)
+    print(f"test_grasp_image: exit {rc} in {t:.3f} s at sample {idx}; "
+          f"raster_blocks launches {launches['raster_blocks']}")
+    if rc != 0 or launches["raster_blocks"] < 1:
+        fail("test_grasp_image failed or never launched raster_blocks")
+    hands = grasps.to_host_list()
+    segs = np.stack([viz.hand_segments(g["position"], g["orientation"])
+                     for g in hands])
+    boxes = np.stack([viz.hand_volume_boxes(g["position"], g["orientation"])
+                      for g in hands])
+    cubes = np.stack([viz.volume_box(g["position"], g["orientation"], 0.06,
+                                     0.10, 0.04) for g in hands])
+    ply = os.path.join(tmp, "grasp_image_scene.ply")
+    viz.save_cloud_ply(ply, pcd.load_cloud_file(path))
+    gap = max(abs(np.linalg.norm(b[0].mean(0) - b[1].mean(0)) - 0.11)
+              for b in boxes)
+    print(f"viz on its {len(hands)} hands: segments {segs.shape}, cuboids "
+          f"{boxes.shape}, volume cubes {cubes.shape}, finger spacing gap "
+          f"{gap:.1e} m; PLY {os.path.getsize(ply)} bytes")
+    if not (np.isfinite(segs).all() and np.isfinite(boxes).all()
+            and gap < 1e-5):
+        fail("viz's hand geometry is not finite or not the hand's")
+    return launches
+
 def weights_path(torch, syn, lenet, detector, GraspDetector, DetectorConfig,
                  convert_weights, params, tmp):
     """The trained parameters written as npz, converted to ONNX by the
@@ -1305,9 +1688,11 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    from gpd_tpu_torch import api, cem, datagen, detector, profiling
+    from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
+    from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
     from gpd_tpu_torch.apps import detect_grasps, generate_candidates
+    from gpd_tpu_torch.apps import test_grasp_image
     from gpd_tpu_torch.config import CEMConfig, DetectorConfig, ImageGeometry
     from gpd_tpu_torch.core.types import CloudArrays
     from gpd_tpu_torch.datasets import synthetic as syn
@@ -1321,9 +1706,18 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    # The C ABI compiles against this Python's headers; without them the C
+    # ABI phase prints one line instead of running.
+    libs = ["raster_blocks", "raster_sums", "pcd_ascii"]
+    why_no_c_abi = None
+    if _build.python_include() is None:
+        why_no_c_abi = (f"this Python has no Python.h in "
+                        f"{sysconfig.get_paths()['include']}")
+    else:
+        libs.append("gpd_c_api")
     t0 = time.perf_counter()
-    logs = _build.build(["raster_blocks", "raster_sums", "pcd_ascii"])
-    print(f"build: {time.perf_counter() - t0:.2f} s")
+    logs = _build.build(libs)
+    print(f"build of {', '.join(libs)}: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or \
@@ -1348,6 +1742,14 @@ def main():
                "CEM, 15 channels": cem_path(torch, img, syn, det, cem,
                                             CEMConfig),
                "staged, 15 channels": staged_path(torch, img, syn, det)}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(parallel_path(torch, img, syn, det, detector, cem,
+                                     CEMConfig, lenet, train, tmp))
+        by_path.update(c_abi_path(torch, img, syn, api, capi, tmp,
+                                  why_no_c_abi))
+        by_path["test_grasp_image, 15 channels"] = grasp_image_path(
+            torch, img, syn, pcd, test_grasp_image, viz, GraspDetector,
+            DetectorConfig, tmp)
     classify_times(torch, lenet, det.net)
 
     units = datagen_units(torch, syn, det, CloudArrays)

@@ -11,12 +11,17 @@ round's own sample positions (pruneGraspCandidates,
 grasp_detector.cpp:529-552), and the survivors go through selection and
 clustering.
 
-This is gpd_tpu's single-device loop path (cem.py:255-361). PyTorch runs
-eagerly, so gpd_tpu's fused ``_cem_fused`` program, which gives the same
-results, has no counterpart; the sharded path (``mesh=``) is not ported.
-Every draw comes from ``ops/draws.py``. Under GPD_TPU_PROFILE a request is
-traced (``profiling.maybe_trace``), its three phases as spans
-(``cem_rounds``, ``cem_scoring``, ``select_and_cluster``).
+This is gpd_tpu's loop path (cem.py:255-361). PyTorch runs eagerly, so
+gpd_tpu's fused ``_cem_fused`` program, which gives the same results, has no
+counterpart. With ``mesh=`` (a ``parallel.sharded.Mesh``; every rank calls
+``detect``) each round's candidates come from ``candidates_sharded_raw`` on
+the rank's shard of the round's samples, the mixture centers accumulate from
+the gathered round in gpd_tpu's layout (each round's slots padded to a
+multiple of the mesh size, cem.py:281-289; MAX_OF_GAUSSIANS picks centers by
+slot), and each round is scored by ``score_sharded_raw``; every rank returns
+the same grasps. Every draw comes from ``ops/draws.py``. Under
+GPD_TPU_PROFILE a request is traced (``profiling.maybe_trace``), its three
+phases as spans (``cem_rounds``, ``cem_scoring``, ``select_and_cluster``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from gpd_tpu_torch.detector import (GraspDetector, candidates_stage,
                                     score_candidates, select_and_cluster)
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops import preprocess as pp
+from gpd_tpu_torch.parallel import sharded
 
 SUM_OF_GAUSSIANS = draws.SUM_OF_GAUSSIANS
 MAX_OF_GAUSSIANS = draws.MAX_OF_GAUSSIANS
@@ -41,11 +47,14 @@ MAX_OF_GAUSSIANS = draws.MAX_OF_GAUSSIANS
 
 class SequentialImportanceSampling:
     """CEM grasp detector (reference: include/gpd/
-    sequential_importance_sampling.h) on the detector's device."""
+    sequential_importance_sampling.h) on the detector's device, sharded over
+    ``mesh`` when one is given."""
 
-    def __init__(self, detector: GraspDetector, cem: CEMConfig):
+    def __init__(self, detector: GraspDetector, cem: CEMConfig,
+                 mesh: Optional[sharded.Mesh] = None):
         self.detector = detector
         self.cem = cem
+        self.mesh = mesh
         # Stats of the last detect() call (the reference prints these,
         # sequential_importance_sampling.cpp:105-186).
         self.last_round_counts = []
@@ -56,17 +65,29 @@ class SequentialImportanceSampling:
                generator: Optional[torch.Generator] = None,
                verbose: bool = True) -> Grasps:
         det = self.detector
-        cfg = det.effective_config(cloud)
         cem = self.cem
+        mesh = self.mesh
         gen = det._generator(generator)
         with profiling.maybe_trace():
             t0 = time.perf_counter()
+            net = det.net
+            n_dev = 1
+            if mesh is not None:
+                cloud = sharded.replicate(mesh, cloud)
+                net = sharded.replicate(mesh, net)
+                n_dev = mesh.size
+            cfg = det.effective_config(cloud)
 
             per = cem.num_samples_per_iteration
             n_rand = int(cem.prob_rand_samples * per)
             n_gauss = per - n_rand
-            cap = det.image_cap(per)
+            cap = det.image_cap(-(-per // n_dev))
             M = cfg.num_orientations * len(cfg.hand_axes)
+
+            def rcap(s):
+                """A round's slots: its samples padded to a multiple of the
+                mesh size, times the hands per sample."""
+                return (s + (-s) % n_dev) * M
 
             # 1. Initial hypotheses at uniform samples (.cpp:71-78).
             idx, valid = pp.subsample_uniform(gen, cloud.mask,
@@ -75,15 +96,22 @@ class SequentialImportanceSampling:
 
             # Mixture centers: every round's candidate samples, written into
             # a buffer of all rounds' capacity (gpd_tpu's _accum_centers).
-            n_slots = (cem.num_init_samples + cem.num_iterations * per) * M
+            n_slots = (rcap(cem.num_init_samples)
+                       + cem.num_iterations * rcap(per))
             centers = torch.zeros((n_slots, 3), device=cloud.device)
             cmask = torch.zeros(n_slots, dtype=torch.bool, device=cloud.device)
             rounds = []
 
             def run_round(spos, smask):
                 """Candidates only (generateGraspCandidates + filters, no
-                CNN)."""
-                g = candidates_stage(cloud, spos, smask, cfg)
+                CNN); with a mesh, this rank's shard and the gathered
+                round."""
+                if mesh is None:
+                    g = candidates_stage(cloud, spos, smask, cfg)
+                else:
+                    spos, smask = sharded.shard_samples(mesh, spos, smask)
+                    g = sharded.candidates_sharded_raw(cloud, spos, smask,
+                                                       cfg, mesh)
                 ofs = sum(r[0].capacity for r in rounds)
                 centers[ofs:ofs + g.capacity] = g.sample
                 cmask[ofs:ofs + g.capacity] = g.valid
@@ -106,9 +134,14 @@ class SequentialImportanceSampling:
             # context (neighborhoods and shadows are per sample), then prune
             # by score (pruneGraspCandidates, grasp_detector.cpp:529-552).
             with profiling.span("cem_scoring"):
-                scored = [score_candidates(cloud, g, spos, smask, det.net,
-                                           gen, cfg, cap)[0]
-                          for g, spos, smask in rounds]
+                if mesh is None:
+                    scored = [score_candidates(cloud, g, spos, smask, net,
+                                               gen, cfg, cap)[0]
+                              for g, spos, smask in rounds]
+                else:
+                    scored = [sharded.score_sharded_raw(
+                        cloud, g, spos, smask, net, gen, cfg, cap, mesh)
+                        for g, spos, smask in rounds]
                 merged = Grasps(**{f.name: torch.cat([getattr(s, f.name)
                                                       for s in scored])
                                    for f in dataclasses.fields(Grasps)})

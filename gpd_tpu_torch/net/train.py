@@ -7,8 +7,17 @@ Training runs at float32 on every device (``LeNet.forward(compute_dtype=
 float32)``), as gpd_tpu's ``loss_fn`` does; TF32 is off for the whole
 package. ``fit`` takes any object with ``blocks()`` (yielding (images
 (N, s, s, C) uint8, labels (N,) int) pairs), so it runs without a file;
-``train`` is ``fit`` over ``HDF5Dataset``s. gpd_tpu's data-parallel mesh
-over several devices is not ported yet: on one device it is this program.
+``train`` is ``fit`` over ``HDF5Dataset``s.
+
+Data parallelism (gpd_tpu's ``dp`` mesh, train.py:134-144): with
+``data_parallel=True`` and an initialized process group (one process per
+device, ``parallel.multihost.initialize``), ``fit`` wraps the LeNet in
+``DistributedDataParallel``, rounds the batch up to at least the world size
+and down to a multiple of it, and each rank takes its contiguous slice of
+the same permuted batch, so gradients average over the whole batch;
+``evaluate`` splits each batch the same way and all-reduces its sums.
+Without a process group ``data_parallel`` changes nothing, as gpd_tpu's
+with one device.
 """
 
 from __future__ import annotations
@@ -19,10 +28,12 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpd_tpu_torch import resolve_device
 from gpd_tpu_torch.net import lenet
+from gpd_tpu_torch.parallel import sharded
 
 
 def make_optimizer(net: lenet.LeNet, lr: float = 1e-3,
@@ -34,18 +45,20 @@ def make_optimizer(net: lenet.LeNet, lr: float = 1e-3,
                             weight_decay=weight_decay)
 
 
-def loss_fn(net: lenet.LeNet, images_u8: torch.Tensor,
+def loss_fn(net: torch.nn.Module, images_u8: torch.Tensor,
             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean softmax cross-entropy, logits), both float32."""
     logits = net(images_u8, compute_dtype=torch.float32)
     return F.cross_entropy(logits, labels.long()), logits
 
 
-def train_step(net: lenet.LeNet, opt: torch.optim.Optimizer,
+def train_step(net: torch.nn.Module, opt: torch.optim.Optimizer,
                images_u8: torch.Tensor, labels: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step; returns (loss, accuracy) as device scalars, so
-    the loop reads them back only when it logs."""
+    the loop reads them back only when it logs. ``net`` is a LeNet, or one
+    wrapped in ``DistributedDataParallel`` (then the loss and accuracy are
+    this rank's slice's)."""
     opt.zero_grad(set_to_none=True)
     loss, logits = loss_fn(net, images_u8, labels)
     loss.backward()
@@ -89,13 +102,37 @@ class HDF5Dataset:
                 yield images, labels
 
 
-def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256
-             ) -> Tuple[float, float]:
+def _dp_mesh(data_parallel: bool) -> Optional[sharded.Mesh]:
+    """The data-parallel mesh: the process group, if ``data_parallel`` and
+    one is initialized."""
+    if data_parallel and dist.is_initialized():
+        return sharded.default_mesh()
+    return None
+
+
+def _dp_batch(batch_size: int, mesh: Optional[sharded.Mesh]) -> int:
+    """The batch rounded up to at least the world size, then down to a
+    multiple of it (gpd_tpu/net/train.py:142-144)."""
+    if mesh is None:
+        return batch_size
+    batch_size = max(batch_size, mesh.size)
+    return batch_size - batch_size % mesh.size
+
+
+def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256,
+             mesh: Optional[sharded.Mesh] = None) -> Tuple[float, float]:
     """(mean loss, accuracy) over ``dataset.blocks()`` (network.py:66-88),
-    the tail batch padded with zeros and weighted out."""
+    the tail batch padded with zeros and weighted out. With a ``mesh``
+    (every rank calling, on the same data), each rank evaluates its slice
+    of every batch and the sums are all-reduced: every rank returns the
+    whole set's numbers."""
     device = net.conv1.weight.device
-    total = correct = 0
-    loss_sum = 0.0
+    batch_size = _dp_batch(batch_size, mesh)
+    per = batch_size // (1 if mesh is None else mesh.size)
+    mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
+                                                     (mesh.rank + 1) * per)
+    total = 0
+    sums = torch.zeros(2, dtype=torch.float64, device=device)
     for images, labels in dataset.blocks():
         for i in range(0, len(labels), batch_size):
             bi = images[i:i + batch_size]
@@ -108,14 +145,16 @@ def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256
                     [bi, np.zeros((pad,) + bi.shape[1:], bi.dtype)])
                 bl = np.concatenate([bl, np.zeros(pad, bl.dtype)])
                 w = np.concatenate([w, np.zeros(pad, np.float32)])
-            loss, c = eval_step(net, *(torch.from_numpy(a).to(device)
+            loss, c = eval_step(net, *(torch.from_numpy(a[mine]).to(device)
                                        for a in (bi, bl.astype(np.int64), w)))
             total += n
-            correct += int(c)
-            loss_sum += float(loss)
+            sums += torch.stack([loss.double(), c.double()])
+    if mesh is not None and mesh.group is not None:
+        dist.all_reduce(sums, group=mesh.group)
     if total == 0:
         return float("nan"), float("nan")
-    return loss_sum / total, correct / total
+    loss_sum, correct = sums.tolist()
+    return loss_sum / total, round(correct) / total
 
 
 def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
@@ -124,7 +163,7 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
         eval_every_blocks: int = 1, log_file: Optional[str] = None,
         device=None,
         on_step: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]]
-        = None) -> Dict[str, np.ndarray]:
+        = None, data_parallel: bool = True) -> Dict[str, np.ndarray]:
     """The training loop (train_net3.py:60-181; gpd_tpu/net/train.py:
     126-187) over ``dataset.blocks()``: each block moves to the device
     once, is shuffled by gpd_tpu's NumPy permutation (``seed``), and runs in
@@ -133,16 +172,37 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
     ``lenet.init_params`` seeded with ``seed`` (torch's numbers). Every
     100th step's (step, loss, accuracy) goes to ``log_file``; ``on_step``,
     if given, gets every step's (step, loss, accuracy), the last two as
-    device scalars. Returns the trained parameters as gpd_tpu's dict."""
+    device scalars (with data parallelism, this rank's slice's). Returns the
+    trained parameters as gpd_tpu's dict.
+
+    ``data_parallel`` with an initialized process group: every rank calls
+    ``fit`` on the same data, the device is the rank's (``device`` must name
+    its type), and only rank 0 writes checkpoints and the log."""
+    mesh = _dp_mesh(data_parallel)
     device = resolve_device(device)
+    if mesh is not None:
+        if device.type != mesh.device.type:
+            raise ValueError(f"data-parallel training runs on the process "
+                             f"group's {mesh.device}, not {device}")
+        device = mesh.device
     net = lenet.params_from_numpy(lenet.init_params(
         torch.Generator().manual_seed(seed), num_channels), device)
+    model = net
+    if mesh is not None:
+        model = torch.nn.parallel.DistributedDataParallel(
+            net, device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=mesh.group)
     opt = make_optimizer(net, lr, weight_decay)
+    batch_size = _dp_batch(batch_size, mesh)
+    per = batch_size if mesh is None else batch_size // mesh.size
+    mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
+                                                     (mesh.rank + 1) * per)
+    lead = mesh is None or mesh.rank == 0
     rng = np.random.default_rng(seed)
     stats = []
 
     def save(name):
-        if checkpoint_dir:
+        if checkpoint_dir and lead:
             os.makedirs(checkpoint_dir, exist_ok=True)
             lenet.save_params_npz(os.path.join(checkpoint_dir, name),
                                   lenet.params_to_numpy(net))
@@ -156,23 +216,27 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
             images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
             labels = torch.from_numpy(labels.astype(np.int64)).to(device)
             for i in range(0, len(perm) - batch_size + 1, batch_size):
-                sel = perm[i:i + batch_size]
-                loss, acc = train_step(net, opt, images[sel], labels[sel])
+                sel = perm[i:i + batch_size][mine]
+                loss, acc = train_step(model, opt, images[sel], labels[sel])
                 step += 1
                 if on_step is not None:
                     on_step(step, loss, acc)
                 if step % 100 == 0:
-                    stats.append((step, float(loss), float(acc)))
+                    both = torch.stack([loss, acc])
+                    if mesh is not None:
+                        dist.all_reduce(both, group=mesh.group)
+                        both /= mesh.size
+                    stats.append((step, *both.tolist()))
             block_i += 1
             if test_dataset is not None and block_i % eval_every_blocks == 0:
-                tl, ta = evaluate(net, test_dataset)
+                tl, ta = evaluate(net, test_dataset, mesh=mesh)
                 print(f"epoch {epoch} block {block_i}: test loss {tl:.4f} "
                       f"acc {ta:.4f}")
                 save(f"lenet_e{epoch}_b{block_i}.npz")
         print(f"epoch {epoch} done in {time.time() - t0:.1f}s")
 
     save("lenet_final.npz")
-    if log_file and stats:
+    if log_file and stats and lead:
         with open(log_file, "w") as f:
             for s, l, a in stats:
                 f.write(f"{s},{l},{a}\n")
@@ -184,12 +248,12 @@ def train(train_path: str, test_path: Optional[str], num_channels: int,
           weight_decay: float = 5e-4, seed: int = 0,
           checkpoint_dir: Optional[str] = None,
           eval_every_blocks: int = 1, max_in_memory: int = 80000,
-          log_file: Optional[str] = None,
-          device=None) -> Dict[str, np.ndarray]:
+          log_file: Optional[str] = None, device=None,
+          data_parallel: bool = True) -> Dict[str, np.ndarray]:
     """``fit`` over HDF5 files (train_net3.py:60-181)."""
     ds = HDF5Dataset(train_path, max_in_memory=max_in_memory)
     test_ds = (HDF5Dataset(test_path, max_in_memory=max_in_memory)
                if test_path else None)
     return fit(ds, test_ds, num_channels, epochs, batch_size, lr,
                weight_decay, seed, checkpoint_dir, eval_every_blocks,
-               log_file, device=device)
+               log_file, device=device, data_parallel=data_parallel)

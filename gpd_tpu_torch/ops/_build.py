@@ -3,10 +3,12 @@
 Each CUDA kernel ``csrc/<name>.cu`` compiles with nvcc for Hopper
 (``sm_90a``), and each host library ``csrc/<name>.cpp`` with the host C++
 compiler, into a shared library with a plain C interface, loaded with
-``ctypes``. Libraries go to ``gpd_tpu_torch/_build/`` (ignored by git) under
-a name that carries a hash of the source, the ``csrc/*.cuh`` headers (for
-kernels) and the flags, so an edited source rebuilds and an unchanged one is
-reused.
+``ctypes``; the C ABI (``gpd_c_api``) also compiles against this Python's
+headers, and links its libpython where this interpreter runs from it.
+Libraries go to ``gpd_tpu_torch/_build/`` (ignored by git) under a name
+that carries a hash of the source, the ``csrc/*.cuh`` headers (for
+kernels) or its own ``.h`` (for a host library), and the flags, so an
+edited source rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,6 +28,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+# Host libraries that embed this Python.
+EMBEDS_PYTHON = ("gpd_c_api",)
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 MAX_DYNAMIC_SMEM = 232448
 
@@ -54,11 +59,50 @@ def _is_host(name: str) -> bool:
     return os.path.exists(os.path.join(CSRC, name + ".cpp"))
 
 
+def python_include() -> Optional[str]:
+    """This Python's include directory if it holds ``Python.h``, else
+    None."""
+    inc = sysconfig.get_paths()["include"]
+    return inc if os.path.exists(os.path.join(inc, "Python.h")) else None
+
+
+def _runs_on_shared_libpython() -> bool:
+    """Whether this interpreter runs from a shared libpython. An executable
+    with the interpreter linked in (as Debian's python3) exports its
+    symbols; a library loaded into it must not link libpython, which would
+    bring a second, uninitialized interpreter into the process."""
+    with open("/proc/self/maps") as f:
+        return "/libpython" in f.read()
+
+
+def _host_flags(name: str) -> Tuple[List[str], List[str]]:
+    """(compile flags, link flags) of a host library. One that embeds this
+    Python also takes its headers, and links its libpython when this
+    interpreter runs from it (a C program that embeds a library built by
+    an interpreter with the symbols linked in links libpython itself)."""
+    if name not in EMBEDS_PYTHON:
+        return HOST_FLAGS, []
+    inc = python_include()
+    if inc is None:
+        raise RuntimeError(f"Python.h not found in "
+                           f"{sysconfig.get_paths()['include']}: the C ABI "
+                           f"needs this Python's development headers")
+    link = []
+    if _runs_on_shared_libpython():
+        libdir = sysconfig.get_config_var("LIBDIR")
+        link = [f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+                f"-lpython{sysconfig.get_config_var('LDVERSION')}"]
+    return HOST_FLAGS + [f"-I{inc}"], link
+
+
 def library_path(name: str) -> str:
-    """The library's path, named by a hash of its source, (for a kernel) the
-    headers in csrc/, and the flags."""
+    """The library's path, named by a hash of its source, the headers in
+    csrc/ (a kernel: every .cuh; a host library: its own .h), and the
+    flags."""
     if _is_host(name):
-        flags, files = HOST_FLAGS, [name + ".cpp"]
+        flags = sum(_host_flags(name), [])
+        files = [f for f in (name + ".cpp", name + ".h")
+                 if os.path.exists(os.path.join(CSRC, f))]
     else:
         flags = NVCC_FLAGS
         files = [name + ".cu", *sorted(f for f in os.listdir(CSRC)
@@ -75,7 +119,9 @@ def _command(name: str, out: str):
         cxx = host_compiler()
         if cxx is None:
             raise RuntimeError("no host C++ compiler (c++ or g++) found")
-        return [cxx, *HOST_FLAGS, "-o", out, os.path.join(CSRC, name + ".cpp")]
+        flags, link = _host_flags(name)
+        return [cxx, *flags, "-o", out, os.path.join(CSRC, name + ".cpp"),
+                *link]
     return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, name + ".cu")]
 
 
