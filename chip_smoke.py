@@ -27,8 +27,18 @@ Phases; any failure exits non-zero and prints no result line:
      request 0's scene once more through detect with sync_stages, so each
      stage's time is its own (host clock);
   5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
-     scenes, one warm-up, 3 requests with SUM_OF_GAUSSIANS and request 0's
-     scene with MAX_OF_GAUSSIANS; each must find a grasp, all finite;
+     scenes, one warm-up, then per scene with SUM_OF_GAUSSIANS and for
+     request 0's scene with MAX_OF_GAUSSIANS the fused route (the default
+     on a card: one CUDA graph per static key, captured at its first
+     request) and the loop (_force_loop) in turns, each request from a
+     generator of the same seed; every fused request must find the loop's
+     round counts, a grasp with finite scores and >= 90% of the loop's
+     selection by position (1e-5), a key's later requests capture
+     nothing and call no kernel wrapper, and one traced replay per key must
+     run on the card the kernel launches its capture recorded; prints ms
+     per request of both routes, the capture's ms and the pool bytes the
+     SIS's keys share, and raster_blocks launches per fused replay (from
+     the trace);
   6. staged: request 0's scene through detect(staged=True) at a cap of
      4096 hands, its four-line report and peak memory; it must find
      detect's candidate count on the same generator seed and share >= 90%
@@ -37,10 +47,11 @@ Phases; any failure exits non-zero and prints no result line:
      card, on request 0's scene at the default DetectorConfig:
      detect_sharded_raw's valid geometry must equal detect_core's on the
      same samples (same count, 1e-5); sharded_detect_host must select a
-     grasp, all scores finite; CEM with mesh= at the default CEMConfig must
-     find a grasp; 20 training steps of fit with DistributedDataParallel
-     must give the parameters of 20 plain steps (each tensor within 1e-6 of
-     its largest entry). Each against its unsharded call, in turns, with
+     grasp, all scores finite; CEM with mesh= (the round loop) at the
+     default CEMConfig must find a grasp and the round counts of CEM
+     without a mesh (the fused route); 20 training steps of fit with
+     DistributedDataParallel must give the parameters of 20 plain steps
+     (each tensor within 1e-6 of its largest entry). Each against its unsharded call, in turns, with
      its raster_blocks launches; no multi-card time is measured;
   8. C ABI: the port's gpd_c_api built with the host compiler against this
      Python's headers (or one line saying why it was not built, where
@@ -58,18 +69,22 @@ Phases; any failure exits non-zero and prints no result line:
      packaged 3-channel weights and outlier removal, sampling above the
      plane and plane removal before the images all on; one warm-up, 3
      requests, a stage breakdown, and the detect_grasps CLI once with a
-     normals CSV and a CSV output; then the cem_detect_grasps,
+     normals CSV and a CSV output; then the cem_detect_grasps (the fused
+     route, raster_sums in a CUDA graph; traced, its replay must run the
+     raster_sums launches its capture recorded),
      detect_grasps --staged and generate_candidates (with a CSV) CLIs
      once each; the api's detect_grasps_in_file and
      calc_grasp_descriptors once each at 15 channels; and each PCD scene,
      then a 640 x 480 sensor frame (307200 points), parsed by the native
      and the NumPy route (identical, native in use, each route timed);
- 11. profiler: one 15-channel detect request and one CEM request (after
-     phase 15, one generate_view and 20 training steps too) under
-     profiling.maybe_trace: the device's busy share of each window, each
-     span's host time and the device time of the kernels launched inside
-     it, and the device kernels with the most time (ten for detect, five
-     for the others) with the operators that launched them;
+ 11. profiler: one 15-channel detect request and one CEM request by each
+     route, the loop first, the fused one a replay of a captured graph
+     that must run the captured launches (after phase 15, one
+     generate_view and 20 training steps too) under profiling.maybe_trace:
+     the device's busy share of each window, its kernel launches and host
+     launch calls, each span's host time and the device time of the kernels
+     launched inside it, and the device kernels with the most time (ten for
+     detect, five for the others) with the operators that launched them;
  12. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
@@ -96,7 +111,11 @@ Phases; any failure exits non-zero and prints no result line:
      generation's per view too), the card line, and the status line last.
 
 Before each path of phases 4-10 and 14 every kernel's launch count is set
-to 0; it is read just after the path's requests. Phases 7-9 run after phase
+to 0; it is read just after the path's requests. A wrapper counts where it
+launches its kernel: eagerly, or into a CUDA graph during a capture. A
+replay calls no wrapper, so the kernels a fused CEM replay runs are counted
+from a profiler trace of the replay: the device kernels launched inside its
+``cem_program`` span. Phases 7-9 run after phase
 6, phases 13-15 before phase 10; phases 12 and 17 run last, 16 with them.
 """
 
@@ -598,43 +617,165 @@ def seeded(torch, seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def cem_path(torch, img, syn, det, cem, CEMConfig):
+def selection_share(a, b):
+    """The share of selection ``a``'s grasps that ``b`` holds at the same
+    position (1e-5): both Grasps on the host."""
+    pa, pb = a.position[a.valid], b.position[b.valid]
+    if not len(pa) or not len(pb):
+        return 0.0
+    return float((np.abs(pa[:, None] - pb[None]).max(-1) <= 1e-5).any(1)
+                 .mean())
+
+
+def span_launches(events, span):
+    """Per kernel family, the device kernels of a profiler trace launched
+    inside ``span`` (by the correlation id of their host launch; a graph
+    replay's kernels carry its one launch call's): raster_blocks, and
+    raster_sums, whose kernels raster_sums2 shares."""
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation" and e.get("name") == span]
+    if len(spans) != 1:
+        fail(f"the profiler trace holds {len(spans)} {span} spans")
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    out = {"raster_blocks": 0, "raster_sums": 0}
+    for e in events:
+        if e.get("cat") != "kernel" or e.get("ph") != "X" or not (
+                t0 <= launch.get(e.get("args", {}).get("correlation"), -1)
+                <= t1):
+            continue
+        for family in out:
+            if family in e["name"]:
+                out[family] += 1
+    return out
+
+
+def captured_launches(entry):
+    """A captured graph's launches per kernel family (span_launches'), as
+    its capture recorded them."""
+    n = dict(zip(KERNELS, entry.launches))
+    return {"raster_blocks": n["raster_blocks"],
+            "raster_sums": n["raster_sums"] + n["raster_sums2"]}
+
+
+def cem_path(torch, img, profiling, syn, det, cem, CEMConfig):
     """CEM (SequentialImportanceSampling) at the default CEMConfig on the
-    15-channel path's scenes: one warm-up, a request per scene with
-    SUM_OF_GAUSSIANS, then request 0's scene with MAX_OF_GAUSSIANS."""
-    sis = cem.SequentialImportanceSampling(det, CEMConfig())
+    15-channel path's scenes, by the fused route (the default on the card:
+    one CUDA graph per static key, captured at the key's first request) and
+    by the loop (_force_loop), in turns (fused, loop, loop, fused, after
+    the fused route's first request), every request from a generator of
+    the same seed: a scene each with SUM_OF_GAUSSIANS, then request 0's
+    scene with MAX_OF_GAUSSIANS. Fails unless every fused request finds the
+    loop's round counts, selects a grasp with finite scores and shares >=
+    90% of the loop's selection by position (1e-5), and a key's later
+    requests capture nothing and call no kernel wrapper. After the turns,
+    one more fused request of the key is traced; it must run on the card
+    the launches the key's capture recorded. Returns the launches of the
+    traced replays (from their traces) and the loop requests' counts."""
+    fused = cem.SequentialImportanceSampling(det, CEMConfig())
+    loop = cem.SequentialImportanceSampling(det, CEMConfig())
+    loop._force_loop = True
     p, cs, vp = scene(syn, 100)
     t0 = time.perf_counter()
-    sis.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
-               generator=seeded(torch, 100), verbose=False)
-    print(f"CEM warm-up request: {time.perf_counter() - t0:.3f} s")
+    loop.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
+                generator=seeded(torch, 100), verbose=False)
+    print(f"CEM warm-up request (loop): {time.perf_counter() - t0:.3f} s")
     reset_counts(img)
+    by_route = {"fused": counts(img), "loop": counts(img)}
+    traces = tempfile.TemporaryDirectory()
     runs = [(r, cem.SUM_OF_GAUSSIANS) for r in range(REQUESTS)]
     for r, method in runs + [(0, cem.MAX_OF_GAUSSIANS)]:
-        sis.cem = CEMConfig(sampling_method=method)
+        fused.cem = loop.cem = CEMConfig(sampling_method=method)
         p, cs, vp = scene(syn, r)
         cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
-        before = img.raster_blocks.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sis.detect(cloud, generator=seeded(torch, r), verbose=False)
-        t = time.perf_counter() - t0
-        h = out.to_host()
-        scores = h.score[h.valid]
         name = ("MAX_OF_GAUSSIANS" if method == cem.MAX_OF_GAUSSIANS
                 else "SUM_OF_GAUSSIANS")
-        print(f"CEM request {r} ({name}): {int(cloud.mask.sum())} points; "
-              f"round candidates {sis.last_round_counts}, grasps "
-              f"{sis.last_num_grasps}; {t * 1e3:.2f} ms; raster_blocks "
-              f"launches {img.raster_blocks.launches - before}; top scores "
+        n_graphs = len(fused.graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.detect(cloud, generator=seeded(torch, r), verbose=False)
+        t_first = time.perf_counter() - t0
+        if len(fused.graphs) > n_graphs:
+            e = list(fused.graphs.values())[-1]
+            first = (f"first fused request {t_first * 1e3:.2f} ms, of it "
+                     f"the eager warm-up and the capture "
+                     f"{e.capture_s * 1e3:.2f} ms, the capture grew the "
+                     f"shared pool by {e.pool_bytes} bytes to "
+                     f"{fused.pool_bytes} over {len(fused.graphs)} keys")
+        else:
+            first = (f"first fused request {t_first * 1e3:.2f} ms, key "
+                     f"seen: nothing captured")
+        n_graphs = len(fused.graphs)
+        ms = {"fused": [], "loop": []}
+        res = {}
+        for route in ("fused", "loop", "loop", "fused"):
+            sis = fused if route == "fused" else loop
+            before = counts(img)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sis.detect(cloud, generator=seeded(torch, r),
+                             verbose=False)
+            ms[route].append(round((time.perf_counter() - t0) * 1e3, 2))
+            delta = {k: v - before[k] for k, v in counts(img).items()}
+            if route == "loop":
+                for k, v in delta.items():
+                    by_route["loop"][k] += v
+            res.setdefault(route, []).append(
+                (list(sis.last_round_counts), sis.last_num_grasps,
+                 out.to_host(), delta["raster_blocks"]))
+        entry = fused.graphs[fused.graph_key(cloud)]
+        want = captured_launches(entry)
+        d = os.path.join(traces.name, f"cem_{r}_{method}")
+        ran = span_launches(traced(profiling, lambda: fused.detect(
+            cloud, generator=seeded(torch, r), verbose=False), d),
+            "cem_program")
+        for k in KERNELS:
+            by_route["fused"][k] += ran.get(k, 0)
+        rounds_l, grasps_l, sel_l, launch_l = res["loop"][0]
+        shares = [selection_share(f[2], sel_l) for f in res["fused"]]
+        h = res["fused"][0][2]
+        scores = h.score[h.valid]
+        print(f"CEM request {r} ({name}): {int(cloud.mask.sum())} points, "
+              f"capacity {cloud.capacity}; round candidates "
+              f"{res['fused'][0][0]} (loop {rounds_l}), valid candidates "
+              f"{sum(res['fused'][0][0])} (loop {sum(rounds_l)}), grasps "
+              f"{[f[1] for f in res['fused']]} (loop "
+              f"{[x[1] for x in res['loop']]}); selection shared with the "
+              f"loop's by position {[f'{s:.1%}' for s in shares]}; ms in "
+              f"turns: fused {ms['fused']}, loop {ms['loop']}; {first}; "
+              f"raster_blocks launches per fused request: wrapper calls "
+              f"{[f[3] for f in res['fused']]}, run by a traced replay "
+              f"{ran['raster_blocks']} (its capture recorded "
+              f"{want['raster_blocks']}; loop {launch_l}); top scores "
               f"{np.round(scores[:5], 3).tolist()}")
-        if sis.last_num_grasps < 1:
-            fail(f"CEM request {r} ({name}) found no grasp")
-        if not np.all(np.isfinite(scores)):
-            fail(f"CEM request {r} ({name}) has non-finite scores")
-    launches = counts(img)
-    print(f"launches on the CEM path: {launches} ({len(runs) + 1} requests)")
-    return launches
+        for rounds_f, grasps_f, sel_f, launch_f in res["fused"]:
+            if rounds_f != rounds_l:
+                fail(f"CEM request {r} ({name}): the fused route's round "
+                     f"counts {rounds_f} are not the loop's {rounds_l}")
+            s = sel_f.score[sel_f.valid]
+            if grasps_f < 1 or not np.all(np.isfinite(s)):
+                fail(f"CEM request {r} ({name}): the fused route found no "
+                     f"grasp or a non-finite score")
+            if launch_f != 0:
+                fail(f"CEM request {r} ({name}): a fused request of a seen "
+                     f"key called a kernel wrapper: it ran eagerly")
+        if ran != want or ran["raster_blocks"] < 1:
+            fail(f"CEM request {r} ({name}): a traced replay ran {ran}, its "
+                 f"capture recorded {want}")
+        if min(shares) < 0.9:
+            fail(f"CEM request {r} ({name}): the fused route shares "
+                 f"{min(shares):.1%} of the loop's selection")
+        if len(fused.graphs) != n_graphs:
+            fail(f"CEM request {r} ({name}): a request of a seen key "
+                 f"captured a graph")
+    print(f"launches on the CEM path: fused, run by {len(runs) + 1} traced "
+          f"replays {by_route['fused']}; loop {by_route['loop']} "
+          f"({2 * (len(runs) + 1)} requests); {len(fused.graphs)} graphs "
+          f"captured, their shared pool {fused.pool_bytes} bytes")
+    traces.cleanup()
+    return by_route
 
 
 def staged_path(torch, img, syn, det):
@@ -656,11 +797,11 @@ def staged_path(torch, img, syn, det):
     launches = counts(img)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = det.last_counts["candidates"]
-    a = out.position[out.valid].cpu().numpy()
-    b = ref.position[ref.valid].cpu().numpy()
-    shared = (np.abs(a[:, None] - b[None]).max(-1) <= 1e-5).any(1).mean()
+    a, b = out.to_host(), ref.to_host()
+    shared = selection_share(a, b)
     print(f"staged request 0: {int(cloud.mask.sum())} points, candidates {n} "
-          f"(detect: {n_ref}), selected {len(a)} (detect: {len(b)}), "
+          f"(detect: {n_ref}), selected {int(a.valid.sum())} (detect: "
+          f"{int(b.valid.sum())}), "
           f"{shared:.1%} of them shared by position with detect's; "
           f"runtimes (ms) " + ", ".join(
               f"{k} {v * 1e3:.2f}" for k, v in det.last_runtimes.items()) +
@@ -677,7 +818,13 @@ def staged_path(torch, img, syn, det):
 def clis_3ch(img, cem_app, detect_grasps, gen_app, cfg, path, tmp):
     """cem_detect_grasps, detect_grasps --staged and generate_candidates
     (with a CSV) once each on a 3-channel PCD scene; returns each one's
-    launch counts."""
+    launch counts. cem_detect_grasps runs under GPD_TPU_PROFILE: its one
+    request captures the fused graph (an eager warm-up, then the capture,
+    in the span cem_capture) and replays it (cem_program). Each wrapper
+    call of the warm-up runs once and each of the capture once per replay,
+    so the wrapper's count must equal the trace's kernels of the two spans
+    together, and the replay must run raster_sums; the replay's count from
+    the trace is returned as a path of its own."""
     out_csv = os.path.join(tmp, "candidates.csv")
     per_cli = {}
     for name, app, argv in (("cem_detect_grasps", cem_app, [cfg, path]),
@@ -686,11 +833,35 @@ def clis_3ch(img, cem_app, detect_grasps, gen_app, cfg, path, tmp):
                             ("generate_candidates", gen_app,
                              [cfg, path, out_csv])):
         reset_counts(img)
+        trace_dir = os.path.join(tmp, "cli_cem")
+        if name == "cem_detect_grasps":
+            os.environ["GPD_TPU_PROFILE"] = trace_dir
         t0 = time.perf_counter()
-        rc = app.main(argv)
+        try:
+            rc = app.main(argv)
+        finally:
+            os.environ.pop("GPD_TPU_PROFILE", None)
         per_cli[name] = counts(img)
-        print(f"{name} CLI: exit {rc} in {time.perf_counter() - t0:.3f} s; "
-              f"raster_sums launches {per_cli[name]['raster_sums']}")
+        how = ""
+        if name == "cem_detect_grasps" and rc == 0:
+            (trace,) = os.listdir(trace_dir)
+            with open(os.path.join(trace_dir, trace)) as f:
+                events = json.load(f)["traceEvents"]
+            warm = span_launches(events, "cem_capture")["raster_sums"]
+            ran = span_launches(events, "cem_program")["raster_sums"]
+            calls = (per_cli[name]["raster_sums"]
+                     + per_cli[name]["raster_sums2"])
+            how = (f" (wrapper calls of the eager warm-up and the capture; "
+                   f"the trace's kernels: warm-up {warm}, replay {ran})")
+            if ran < 1 or calls != warm + ran:
+                fail(f"cem_detect_grasps: {calls} raster_sums wrapper calls, "
+                     f"the trace ran {warm} in the warm-up and {ran} in the "
+                     f"replay")
+            per_cli[f"{name} replay (trace)"] = {
+                "raster_blocks": 0, "raster_sums": ran, "raster_sums2": 0}
+        print(f"{name} CLI: exit {rc} in {time.perf_counter() - t0:.3f} s "
+              f"({'traced' if how else 'untraced'}); raster_sums launches "
+              f"{per_cli[name]['raster_sums']}{how}")
         if rc != 0:
             fail(f"{name} returned {rc}")
     with open(out_csv) as f:
@@ -828,8 +999,12 @@ def read_trace(events, span_names, label, n_top):
         t, n, ops = by_name.get(e["name"], (0.0, 0, set()))
         by_name[e["name"]] = (t + e["dur"], n + 1, ops | {op})
     total = sum(v[0] for v in by_name.values())
+    # Launch calls on the host: one per kernel eagerly, one per graph.
+    calls = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "") and w0 <= e["ts"] <= w1)
     print(f"profiler, {label}: window {(w1 - w0) / 1e3:.2f} ms, "
-          f"{len(kernels)} kernel launches of {len(by_name)} kernels, "
+          f"{len(kernels)} kernel launches of {len(by_name)} kernels from "
+          f"{calls} host launch calls, "
           f"{total / 1e3:.2f} ms of kernel time; device busy "
           f"{busy / (w1 - w0):.1%} of the window; " + "; ".join(parts))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
@@ -839,8 +1014,11 @@ def read_trace(events, span_names, label, n_top):
 
 
 def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
-    """One 15-channel detect request and one CEM request (request 0's
-    scene) under profiling.maybe_trace, each read by read_trace."""
+    """One 15-channel detect request and two CEM requests, by the loop and
+    by the fused route (request 0's scene), under profiling.maybe_trace,
+    each read by read_trace. The loop goes first: a capture empties the
+    allocator's cache, which the next eager requests refill. The fused
+    replay must run the launches its capture recorded."""
     p, cs, vp = scene(syn, 0)
     cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
     events = traced(profiling, lambda: det.detect(
@@ -849,11 +1027,30 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
     read_trace(events, ("detect_core", "select_and_cluster"),
                "15-channel detect request", 10)
     sis = cem.SequentialImportanceSampling(det, CEMConfig())
+    sis._force_loop = True
     events = traced(profiling, lambda: sis.detect(
         cloud, generator=seeded(torch, 0), verbose=False),
         os.path.join(tmp, "cem"))
     read_trace(events, ("cem_rounds", "cem_scoring", "select_and_cluster"),
-               "15-channel CEM request", 5)
+               "15-channel CEM request, loop route", 5)
+    # The fused route's key is captured before the trace, so the traced
+    # request is one replay.
+    sis._force_loop = False
+    sis.detect(cloud, generator=seeded(torch, 0), verbose=False)
+    events = traced(profiling, lambda: sis.detect(
+        cloud, generator=seeded(torch, 0), verbose=False),
+        os.path.join(tmp, "cem_fused"))
+    read_trace(events, ("cem_program",),
+               "15-channel CEM request, fused route (graph replay)", 5)
+    (entry,) = sis.graphs.values()
+    ran, want = span_launches(events, "cem_program"), captured_launches(entry)
+    print(f"profiler, fused CEM replay: kernel launches run {ran}, its "
+          f"capture recorded {want}")
+    if ran != want:
+        fail(f"the traced fused replay ran {ran}, its capture recorded "
+             f"{want}")
+
+
 def classify_times(torch, lenet, net):
     """LeNet scores (lenet.score, the classify stage) of 512 and 4096
     random 15-channel images at bf16 (the card's default) and f32, by
@@ -1273,15 +1470,21 @@ def parallel_path(torch, img, syn, det, detector, cem, CEMConfig, lenet,
                 by_path["CEM mesh=, world 1 (NCCL)"] = counts(img)
                 h = out.to_host()
         s_m, s_p = sis["CEM mesh="], sis["CEM"]
-        print(f"parallel: CEM mesh= round candidates "
-              f"{s_m.last_round_counts} (without: {s_p.last_round_counts}), "
-              f"grasps {s_m.last_num_grasps} (without: "
-              f"{s_p.last_num_grasps}); ms in turns: CEM {cem_ms['CEM']}, "
-              f"CEM mesh= {cem_ms['CEM mesh=']}; raster_blocks launches "
+        # Without a mesh CEM takes the fused route (a captured CUDA graph);
+        # with one, the round loop.
+        print(f"parallel: CEM mesh= (the round loop) round candidates "
+              f"{s_m.last_round_counts} (without, the fused route's CUDA "
+              f"graph: {s_p.last_round_counts}), grasps "
+              f"{s_m.last_num_grasps} (without: {s_p.last_num_grasps}); ms "
+              f"in turns: CEM {cem_ms['CEM']}, CEM mesh= "
+              f"{cem_ms['CEM mesh=']}; raster_blocks launches "
               f"{by_path['CEM mesh=, world 1 (NCCL)']['raster_blocks']}")
         if s_m.last_num_grasps < 1 or not np.isfinite(
                 h.score[h.valid]).all():
             fail("CEM with mesh= found no grasp or a non-finite score")
+        if s_m.last_round_counts != s_p.last_round_counts:
+            fail("CEM with mesh= found other round counts than the fused "
+                 "route on the same seed")
 
         rng = np.random.default_rng(12)
         data = Blocks(rng.integers(0, 256, (20 * 64, 60, 60, 15),
@@ -1738,9 +1941,11 @@ def main():
     stage_breakdown(torch, det, lambda: det.preprocess_cloud(
         p, view_points=vp, cam_source=cs), img.raster_blocks,
         "15 channels, request 0 scene")
+    cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig)
     by_path = {"detect, 15 channels": launches15,
-               "CEM, 15 channels": cem_path(torch, img, syn, det, cem,
-                                            CEMConfig),
+               "CEM fused, 15 channels (4 traced replays, from the trace)":
+                   cem_launches["fused"],
+               "CEM loop, 15 channels (8 requests)": cem_launches["loop"],
                "staged, 15 channels": staged_path(torch, img, syn, det)}
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(parallel_path(torch, img, syn, det, detector, cem,

@@ -11,6 +11,7 @@ about three decimal digits, which flips the hand-frame containment tests
 in bfloat16, and only on the card (``net/lenet.py``).
 """
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -28,3 +29,22 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+_CONSTANTS = {}
+
+
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """``values`` (an array or nested sequence made on the host) as a tensor
+    on ``device``, made once per (values, dtype, device) and shared by every
+    later call, which copies nothing. A copy from the host waits for the
+    card, which CUDA graph capture forbids: code that a graph captures takes
+    its constants from here, and the eager run before the capture has made
+    them. Callers never write to the result."""
+    a = np.asarray(values, dtype=np.float64)
+    key = (a.tobytes(), a.shape, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.from_numpy(a).to(device=device,
+                                                     dtype=dtype)
+    return t

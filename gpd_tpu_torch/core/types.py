@@ -127,6 +127,32 @@ class CloudArrays:
 
 
 @dataclasses.dataclass
+class Samples:
+    """Padded sample set: xyz positions and a validity mask
+    (gpd_tpu/core/types.py:139-156)."""
+
+    positions: torch.Tensor     # (S, 3) f32
+    mask: torch.Tensor          # (S,) bool
+
+    @staticmethod
+    def from_numpy(positions: np.ndarray, capacity: Optional[int] = None,
+                   device=None) -> "Samples":
+        """Positions padded with PAD_COORD to ``capacity`` rows (by default
+        ``_next_size`` with a minimum of 8) on ``device`` (CUDA unless
+        named)."""
+        device = resolve_device(device)
+        positions = np.asarray(positions, dtype=np.float32).reshape(-1, 3)
+        s = positions.shape[0]
+        cap = capacity or _next_size(s, minimum=8)
+        pos = np.full((cap, 3), PAD_COORD, dtype=np.float32)
+        pos[:s] = positions
+        mask = np.zeros(cap, dtype=bool)
+        mask[:s] = True
+        return Samples(positions=torch.from_numpy(pos).to(device),
+                       mask=torch.from_numpy(mask).to(device))
+
+
+@dataclasses.dataclass
 class Grasps:
     """Struct-of-arrays grasp batch = the reference's vector<Hand>
     (include/gpd/candidate/hand.h). Flat over (sample x axis x orientation)."""

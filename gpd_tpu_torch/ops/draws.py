@@ -68,9 +68,11 @@ def _pick(generator: torch.Generator, mask: torch.Tensor,
     ``jax.random.choice(..., p=mask/sum)`` gives on an all-zero ``p``."""
     w = mask.to(torch.float32)
     w[0] += (~mask.any()).to(torch.float32)
-    idx = torch.multinomial(w.to(generator.device), n, replacement=True,
-                            generator=generator)
-    return idx.to(mask.device)
+    # torch.multinomial checks a single draw's weights on the host; two or
+    # more draws with replacement read nothing back.
+    idx = torch.multinomial(w.to(generator.device), max(n, 2),
+                            replacement=True, generator=generator)
+    return idx[:n].to(mask.device)
 
 
 def _normal3(generator: torch.Generator, n: int, device) -> torch.Tensor:

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from gpd_tpu_torch import constant
+
 _EPS = 1e-12
 
 
@@ -74,8 +76,8 @@ def eigh3_sym(A: torch.Tensor):
     An = A / scale[..., None, None]
     w = eigvals3_sym(An)
 
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=An.dtype,
-                      device=An.device).expand(An[..., 0, :].shape)
+    ex = constant((1.0, 0.0, 0.0), An.device, An.dtype).expand(
+        An[..., 0, :].shape)
     v2 = _eigvec(An, w[..., 2], ex)              # largest: best conditioned
     # Second vector: orthogonalize against v2 for stability.
     v0_raw = _eigvec(An, w[..., 0], _perp(v2))

@@ -143,3 +143,11 @@ def radius_moments(query: torch.Tensor, query_mask: torch.Tensor,
              for i in range(0, q, block)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
+
+def gather_neighborhoods(idx: torch.Tensor, valid: torch.Tensor, *arrays):
+    """Per-neighbor attributes: each (N, ...) array gathered at ``idx``
+    (Q, K) into (Q, K, ...); one array comes back alone, several as a tuple
+    (gpd_tpu/ops/neighbors.py:237-243). ``valid`` is not read, as in
+    gpd_tpu: callers mask with it."""
+    out = tuple(a[idx] for a in arrays)
+    return out if len(out) > 1 else out[0]

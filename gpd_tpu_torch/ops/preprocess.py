@@ -15,6 +15,15 @@ from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops.neighbors import _dist2
 
 
+def remove_nans(cloud: CloudArrays) -> CloudArrays:
+    """Mask out non-finite points, padded with PAD_COORD (reference:
+    cloud.cpp:154-164; gpd_tpu/ops/preprocess.py:21-24). The port's
+    ``preprocess_cloud`` drops such rows on the host instead, as gpd_tpu's
+    does."""
+    ok = torch.all(torch.isfinite(cloud.points), dim=1) & cloud.mask
+    return _apply_mask(cloud, ok)
+
+
 def _apply_mask(cloud: CloudArrays, mask: torch.Tensor) -> CloudArrays:
     pts = torch.where(mask[:, None], cloud.points, PAD_COORD)
     return CloudArrays(points=pts, normals=cloud.normals,
@@ -134,8 +143,10 @@ def fit_plane_ransac(points: torch.Tensor, mask: torch.Tensor,
     dist = torch.abs(points @ nvec.T + d[None, :]).T        # (iters, N)
     inl = (dist <= dist_thresh) & mask[None, :]
     scores = torch.where(nlen[:, 0] < 1e-9, -1, inl.sum(dim=1))
-    best = torch.argmax(scores)
-    return inl[best], torch.cat([nvec[best], d[best][None]])
+    # A (1,) index, not a 0-dim one: indexing with a 0-dim tensor reads it
+    # back to the host.
+    best = torch.argmax(scores, dim=0, keepdim=True)
+    return inl[best][0], torch.cat([nvec[best][0], d[best]])
 
 
 def sample_above_plane(cloud: CloudArrays, generator: torch.Generator,

@@ -13,6 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from gpd_tpu_torch import constant
 from gpd_tpu_torch.core.types import Grasps
 
 
@@ -35,8 +36,8 @@ def filter_grasps_workspace(grasps: Grasps, workspace: Sequence[float],
     pts = torch.stack([left_bottom, right_bottom, left_top, right_top, appr],
                       dim=1)                                       # (G, 5, 3)
     w = workspace
-    lo = torch.tensor([w[0], w[2], w[4]], dtype=torch.float32, device=pos.device)
-    hi = torch.tensor([w[1], w[3], w[5]], dtype=torch.float32, device=pos.device)
+    lo = constant((w[0], w[2], w[4]), pos.device)
+    hi = constant((w[1], w[3], w[5]), pos.device)
     inside = torch.all((torch.amin(pts, dim=1) >= lo) &
                        (torch.amax(pts, dim=1) <= hi), dim=-1)
     aperture_ok = (grasps.width >= min_aperture) & (grasps.width <= max_aperture)
@@ -46,8 +47,7 @@ def filter_grasps_workspace(grasps: Grasps, workspace: Sequence[float],
 def filter_grasps_direction(grasps: Grasps, direction: Sequence[float],
                             thresh_rad: float) -> Grasps:
     """Approach-direction filter (grasp_detector.cpp:422-456)."""
-    d = torch.tensor(direction, dtype=torch.float32,
-                     device=grasps.position.device)
+    d = constant(direction, grasps.position.device)
     d = d / torch.clamp(torch.linalg.vector_norm(d), min=1e-12)
     angle = torch.arccos(torch.clamp(grasps.approach @ d, -1.0, 1.0))
     return dataclasses.replace(grasps, valid=grasps.valid & (angle <= thresh_rad))

@@ -15,6 +15,7 @@ local frame (asserted; ROADMAP.md C). Round counts must be equal, and the
 selected grasps the same set (positions 1e-5, scores 1e-3).
 """
 
+import dataclasses
 import json
 import os
 import unittest.mock as mock
@@ -384,6 +385,7 @@ def test_cem_phases_are_profiler_spans(tmp_path):
     cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
     sis = tcem.SequentialImportanceSampling(det, CEMConfig(
         num_init_samples=8, num_iterations=1, num_samples_per_iteration=8))
+    sis._force_loop = True          # the loop's phases; the program's span
     with profiling.maybe_trace(str(tmp_path)):
         sis.detect(cloud, generator=gen(1), verbose=False)
     (name,) = os.listdir(tmp_path)
@@ -401,9 +403,97 @@ def test_cem_traces_itself_under_gpd_tpu_profile(tmp_path, monkeypatch):
     cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
     sis = tcem.SequentialImportanceSampling(det, CEMConfig(
         num_init_samples=8, num_iterations=1, num_samples_per_iteration=8))
+    sis._force_loop = True
     monkeypatch.setenv("GPD_TPU_PROFILE", str(tmp_path))
     sis.detect(cloud, generator=gen(1), verbose=False)
     (name,) = os.listdir(tmp_path)
     with open(tmp_path / name) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "cem_scoring" in names
+
+
+# ------------------------------------- the fused program against the loop
+
+def rods_sis(channels, method):
+    """A CPU CEM detector on the rods at the sizes of
+    test_cem_selects_the_same_grasps, and its cloud."""
+    p, cs, vp = rods_only(4)
+    det = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels), num_samples=16,
+        image_neighbors_cap=256, num_selected=12, **ROD_KW), device="cpu")
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    return tcem.SequentialImportanceSampling(det, CEMConfig(
+        num_init_samples=24, num_iterations=2, num_samples_per_iteration=20,
+        standard_deviation=0.004, sampling_method=method,
+        min_score=-1e9)), cloud
+
+
+@pytest.mark.parametrize("channels,method", [
+    (15, draws.SUM_OF_GAUSSIANS), (3, draws.MAX_OF_GAUSSIANS)])
+def test_fused_program_equals_the_loop(channels, method):
+    """One generator seed through the default route (the fused program)
+    and through the loop (_force_loop): the tolerances of gpd_tpu's own
+    fused-vs-loop test (tests/test_cem.py:149-177), and the generator left
+    at the same state."""
+    sis, cloud = rods_sis(channels, method)
+    g_fused, g_loop = gen(3), gen(3)
+    with mock.patch.object(tcem, "_cem_program",
+                           wraps=tcem._cem_program) as program:
+        fused = sis.detect(cloud, generator=g_fused, verbose=False)
+    assert program.call_count == 1
+    counts, n_fused = sis.last_round_counts, sis.last_num_grasps
+    sis._force_loop = True
+    loop = sis.detect(cloud, generator=g_loop, verbose=False)
+    assert counts == sis.last_round_counts and min(counts) > 0
+    assert n_fused == sis.last_num_grasps > 0
+    vf, vl = fused.valid.numpy(), loop.valid.numpy()
+    np.testing.assert_array_equal(vf, vl)
+    np.testing.assert_allclose(fused.position.numpy()[vf],
+                               loop.position.numpy()[vl], atol=1e-6)
+    np.testing.assert_allclose(fused.score.numpy()[vf],
+                               loop.score.numpy()[vl], atol=1e-5)
+    assert torch.equal(g_fused.get_state(), g_loop.get_state())
+
+
+def _no_host_read(*args, **kwargs):
+    raise AssertionError("the CEM program read a tensor back to the host")
+
+
+HOST_READS = ("item", "tolist", "cpu", "numpy", "__int__", "__float__",
+              "__bool__", "__index__")
+
+
+@pytest.mark.parametrize("channels,method", [
+    (15, draws.SUM_OF_GAUSSIANS), (3, draws.MAX_OF_GAUSSIANS)])
+def test_program_reads_nothing_back(channels, method):
+    """_cem_program runs through with every way of reading a tensor back to
+    the host patched to raise: its control flow and shapes follow from its
+    arguments alone, as a CUDA graph needs. The loop, which reads the
+    valid count of every scoring pass, trips the same guard. 3 channels
+    with MAX_OF_GAUSSIANS also run the plane removal's RANSAC."""
+    sis, cloud = rods_sis(channels, method)
+    sis.detector.cfg = dataclasses.replace(
+        sis.detector.cfg, remove_plane_before_image_calculation=channels == 3)
+    args = sis.program_args(cloud)
+    patches = [mock.patch.object(torch.Tensor, name, _no_host_read)
+               for name in HOST_READS]
+    out, counts = run_patched(patches, lambda: tcem._cem_program(
+        cloud, sis.detector.net, gen(0), *args))
+    assert counts.shape == (3,) and int(counts.min()) > 0
+    assert out.valid.any()
+    with pytest.raises(AssertionError, match="read a tensor back"):
+        run_patched(patches, lambda: sis._detect_loop(cloud, gen(0)))
+
+
+def test_fused_request_is_one_profiler_span(tmp_path):
+    """The fused route is traced as one span, cem_program, and none of the
+    loop's phases."""
+    sis, cloud = rods_sis(3, draws.SUM_OF_GAUSSIANS)
+    with profiling.maybe_trace(str(tmp_path)):
+        sis.detect(cloud, generator=gen(1), verbose=False)
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert "cem_program" in names
+    assert not names & {"cem_rounds", "cem_scoring", "select_and_cluster"}

@@ -19,11 +19,13 @@ import torch
 
 import gpd_tpu.detector as jdet
 from gpd_tpu.core.types import CloudArrays as JCloud
+from gpd_tpu.core.types import Samples as JSamples
 from gpd_tpu.ops import eigh3 as jeigh
 from gpd_tpu.ops import frames as jframes
 from gpd_tpu.ops import neighbors as jnbr
 from gpd_tpu.ops import normals as jnormals
-from gpd_tpu_torch.core.types import CloudArrays, _next_size
+from gpd_tpu.ops import preprocess as jpp
+from gpd_tpu_torch.core.types import CloudArrays, Samples, _next_size
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import eigh3, frames, neighbors, normals, preprocess
 from gpd_tpu_torch.ops import draws
@@ -96,6 +98,29 @@ class TestNeighbors:
         np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
         np.testing.assert_allclose(np.asarray(sj), st.numpy(), atol=1e-5)
 
+    def test_gather_neighborhoods_identical(self):
+        """Each (N, ...) array at the nearest-K indices; one array comes
+        back alone, several as a tuple."""
+        rng = np.random.default_rng(5)
+        p, pm, qp, qm = grid_cloud(rng, 600, 40)
+        nrm = rng.normal(size=(600, 3)).astype(np.float32)
+        cs = rng.integers(0, 4, 600)
+        ij, vj = jnbr.radius_neighbors(jnp.asarray(qp), jnp.asarray(qm),
+                                       jnp.asarray(p), jnp.asarray(pm),
+                                       0.05, 32, exact=True)
+        it, vt = neighbors.radius_neighbors(T(qp), T(qm), T(p), T(pm), 0.05,
+                                            32)
+        want = jnbr.gather_neighborhoods(ij, vj, jnp.asarray(p),
+                                         jnp.asarray(nrm), jnp.asarray(cs))
+        got = neighbors.gather_neighborhoods(it, vt, T(p), T(nrm), T(cs))
+        assert len(got) == 3 and got[0].shape == (40, 32, 3)
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        one = neighbors.gather_neighborhoods(it, vt, T(p))
+        np.testing.assert_array_equal(
+            np.asarray(jnbr.gather_neighborhoods(ij, vj, jnp.asarray(p))),
+            one.numpy())
+
 
 class TestEigh3:
     def test_matches_gpd_tpu(self):
@@ -129,6 +154,34 @@ class TestPreprocess:
         np.testing.assert_array_equal(np.asarray(jc.cam_source),
                                       tc.cam_source.numpy())
         assert 0 < tc.mask.sum() < len(p)
+
+    def test_remove_nans_identical(self):
+        """Rows with a NaN or an infinity leave the mask and move to
+        PAD_COORD; padded slots stay out."""
+        rng = np.random.default_rng(6)
+        p = rng.normal(size=(300, 3)).astype(np.float32)
+        p[::17, 1] = np.nan
+        p[5, 2] = np.inf
+        p[8, 0] = -np.inf
+        jc, tc = cloud_pair(p)
+        jr, tr = jpp.remove_nans(jc), preprocess.remove_nans(tc)
+        np.testing.assert_array_equal(np.asarray(jr.mask), tr.mask.numpy())
+        np.testing.assert_array_equal(np.asarray(jr.points), tr.points.numpy())
+        assert tr.mask.sum() == 300 - len(range(0, 300, 17)) - 2
+        assert torch.isfinite(tr.points).all()
+
+    @pytest.mark.parametrize("n,capacity", [(1, None), (8, None), (9, None),
+                                            (300, None), (5, 64)])
+    def test_samples_from_numpy_identical(self, n, capacity):
+        """PAD_COORD padding to _next_size with a minimum of 8, or to a
+        given capacity."""
+        pos = np.random.default_rng(n).normal(size=(n, 3))
+        j = JSamples.from_numpy(pos, capacity=capacity)
+        t = Samples.from_numpy(pos, capacity=capacity, device="cpu")
+        np.testing.assert_array_equal(np.asarray(j.positions),
+                                      t.positions.numpy())
+        np.testing.assert_array_equal(np.asarray(j.mask), t.mask.numpy())
+        assert t.positions.dtype == torch.float32 and t.mask.dtype == torch.bool
 
     def test_next_size_and_compaction(self):
         for n in (1, 255, 257, 1000, 13500, 70000):
