@@ -23,9 +23,23 @@ Phases; any failure exits non-zero and prints no result line:
      values within atol 1e-3 + rtol 1e-5;
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
-     synthetic two-camera table scenes, one warm-up and 3 requests; then
-     request 0's scene once more through detect with sync_stages, so each
-     stage's time is its own (host clock);
+     synthetic two-camera table scenes, one warm-up and 3 scenes. detect
+     runs as three CUDA graphs (A: samples and candidates, then one read of
+     A's counts, B: images and scores over the live chunks, C: selection),
+     each captured at the first request of its key. Per scene the first
+     request is timed apart (what it captured, each capture's ms, the
+     shared pool's bytes), then the graph route and the eager route
+     (_force_eager) in turns (graph, eager, eager, graph) on one generator
+     seed, then one traced graph request and one traced eager request
+     (window, busy share, host launch calls, kernel time of each): every
+     request must find the
+     eager route's candidate count and a grasp with finite scores, every
+     graph request >= 90% of the eager route's selection by position
+     (1e-5), a request of seen keys must capture nothing and call no
+     kernel wrapper, and the traced replay must run in its detect_core
+     span the raster_blocks kernels its captures recorded; then request
+     0's scene once more through detect with sync_stages (the eager
+     route), so each stage's time is its own (host clock);
   5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
      scenes, one warm-up, then per scene with SUM_OF_GAUSSIANS and for
      request 0's scene with MAX_OF_GAUSSIANS the fused route (the default
@@ -67,8 +81,9 @@ Phases; any failure exits non-zero and prints no result line:
      single-camera table scenes written as PCD files to a temporary
      directory, at the default widths with 3 channels, 1000 samples, the
      packaged 3-channel weights and outlier removal, sampling above the
-     plane and plane removal before the images all on; one warm-up, 3
-     requests, a stage breakdown, and the detect_grasps CLI once with a
+     plane and plane removal before the images all on; one warm-up, then
+     per scene what phase 4 does per scene (its graphs run raster_sums),
+     a stage breakdown, and the detect_grasps CLI once with a
      normals CSV and a CSV output; then the cem_detect_grasps (the fused
      route, raster_sums in a CUDA graph; traced, its replay must run the
      raster_sums launches its capture recorded),
@@ -78,13 +93,19 @@ Phases; any failure exits non-zero and prints no result line:
      then a 640 x 480 sensor frame (307200 points), parsed by the native
      and the NumPy route (identical, native in use, each route timed);
  11. profiler: one 15-channel detect request and one CEM request by each
-     route, the loop first, the fused one a replay of a captured graph
-     that must run the captured launches (after phase 15, one
+     route: detect's graph route (replays of seen keys, which must run the
+     launches their captures recorded) and its eager route, with their
+     kernel time, busy share and host launch calls side by side, and each
+     route's traced kernel time over the median of three untraced requests
+     of it (the profiler makes a graph's launch call slow); CEM's
+     loop first, the fused one a replay of a captured graph that must run
+     the captured launches (after phase 15, one
      generate_view and 20 training steps too) under profiling.maybe_trace:
      the device's busy share of each window, its kernel launches and host
      launch calls, each span's host time and the device time of the kernels
-     launched inside it, and the device kernels with the most time (ten for
-     detect, five for the others) with the operators that launched them;
+     launched inside it, the window's longest idle gaps, and the device
+     kernels with the most time (ten for detect's graph route, five for the
+     others) with the operators that launched them;
  12. reference: on small scenes, the card's 15- and 3-channel grasp images
      against the CPU route (the repo's gate: under 0.5% of pixels off by
      more than one step);
@@ -113,9 +134,10 @@ Phases; any failure exits non-zero and prints no result line:
 Before each path of phases 4-10 and 14 every kernel's launch count is set
 to 0; it is read just after the path's requests. A wrapper counts where it
 launches its kernel: eagerly, or into a CUDA graph during a capture. A
-replay calls no wrapper, so the kernels a fused CEM replay runs are counted
-from a profiler trace of the replay: the device kernels launched inside its
-``cem_program`` span. Phases 7-9 run after phase
+replay calls no wrapper, so the kernels a replay runs are counted from a
+profiler trace of it: the device kernels launched inside its
+``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9 run
+after phase
 6, phases 13-15 before phase 10; phases 12 and 17 run last, 16 with them.
 """
 
@@ -483,44 +505,153 @@ def scene(syn, seed):
     return syn.render_fused_views(rng, pts, nrm, cams)
 
 
-def main_path(torch, img, syn, det):
+def graph_keys_line(det, n_before, t_first):
+    """A request's first-request report: what it captured (the keys it
+    added to det.graphs, each capture's ms), the shared pool after it, and
+    its ms."""
+    new = [k for k in det.last_graphs if k in list(det.graphs)[n_before:]]
+    if not new:
+        return f"first request {t_first * 1e3:.2f} ms, keys seen"
+    caps = ", ".join(f"{k[0]} {det.graphs[k].capture_s * 1e3:.2f}"
+                     for k in new)
+    pool = sum(e.pool_bytes for e in det.graphs.values())
+    return (f"first request {t_first * 1e3:.2f} ms, of it warm-up + "
+            f"capture ms {caps}; the shared pool {pool} bytes over "
+            f"{len(det.graphs)} graphs")
+
+
+def graph_turns(torch, img, profiling, det, request, label, family, d):
+    """One request's scene by detect's graph route (the default) and its
+    eager route (_force_eager): the first request of the scene apart (it
+    captures what is new), then graph, eager, eager, graph in turns on
+    one generator seed, then one traced graph request and one traced eager
+    request, each read by read_trace (window, busy share, host launch
+    calls, kernel time; no kernel list). Fails unless every
+    request finds the eager route's candidate count and a grasp with
+    finite scores, each graph request shares >= 90% of the eager route's
+    selection by position (1e-5), a graph request of seen keys captures
+    nothing and calls no kernel wrapper, and the traced replay runs in its
+    detect_core span the ``family`` kernels its captures recorded. Returns
+    the kernels the traced replay ran, per family."""
+    n_graphs = len(det.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    request()
+    first = graph_keys_line(det, n_graphs, time.perf_counter() - t0)
+    n_graphs = len(det.graphs)
+    res = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        det._force_eager = route == "eager"
+        before = counts(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = request().to_host()
+        finally:
+            det._force_eager = False
+        ms = round((time.perf_counter() - t0) * 1e3, 2)
+        calls = sum(v - before[k] for k, v in counts(img).items())
+        res[route].append((ms, dict(det.last_counts), out, calls,
+                           dict(det.last_runtimes)))
+    spans = ("detect_core", "select_and_cluster")
+    events = traced(profiling, request, d)
+    ran = span_launches(events, "detect_core")
+    graph = read_trace(events, spans, f"{label}, graph replay", 0)
+    want = {"raster_blocks": 0, "raster_sums": 0}
+    for k in det.last_graphs:
+        for family_k, n in captured_launches(det.graphs[k]).items():
+            want[family_k] += n
+    pair = det.last_graphs[1][-2:]
+    det._force_eager = True
+    try:
+        eager_trace = read_trace(traced(profiling, request, d + "_eager"),
+                                 spans, f"{label}, eager request", 0)
+    finally:
+        det._force_eager = False
+    eager = res["eager"][0]
+    shares = [selection_share(g[2], eager[2]) for g in res["graph"]]
+    for route, runs in res.items():
+        for ms, ct, out, calls, rt in runs:
+            s = out.score[out.valid]
+            if ct["candidates"] != eager[1]["candidates"]:
+                fail(f"{label}: the {route} route found {ct['candidates']} "
+                     f"candidates, the eager route {eager[1]['candidates']}")
+            if ct["selected"] < 1 or not np.all(np.isfinite(s)):
+                fail(f"{label}: the {route} route selected no grasp or a "
+                     f"non-finite score")
+            if route == "graph" and calls:
+                fail(f"{label}: a graph request of seen keys called a "
+                     f"kernel wrapper {calls} times: it ran eagerly")
+    if len(det.graphs) != n_graphs:
+        fail(f"{label}: a request of seen keys captured a graph")
+    if min(shares) < 0.9:
+        fail(f"{label}: the graph route shares {min(shares):.1%} of the "
+             f"eager route's selection")
+    if ran != want or ran[family] < 1:
+        fail(f"{label}: a traced replay ran {ran}, its captures recorded "
+             f"{want}")
+    ct, rt = res["graph"][0][1], res["graph"][0][4]
+    h = res["graph"][0][2]
+    print(f"{label}: processed {ct['points']} points (capacity "
+          f"{ct['capacity']}); samples {ct['samples']}, candidates "
+          f"{ct['candidates']}, selected {ct['selected']}; {first}; ms in "
+          f"turns: graph {[g[0] for g in res['graph']]}, eager "
+          f"{[e[0] for e in res['eager']]}; graph detect "
+          f"{rt['detect'] * 1e3:.2f}, select {rt['select'] * 1e3:.2f}, "
+          f"detect total {rt['total'] * 1e3:.2f} ms; live (chunk, block) "
+          f"ends {pair}; traced kernel time graph "
+          f"{graph['kernel_ms']:.2f} vs eager {eager_trace['kernel_ms']:.2f} "
+          f"ms ({graph['kernel_ms'] / eager_trace['kernel_ms'] - 1:+.2%}), "
+          f"busy {graph['busy']:.1%} vs {eager_trace['busy']:.1%}, host "
+          f"launch calls {graph['calls']} vs {eager_trace['calls']}; "
+          f"selection shared with the eager "
+          f"route's by position {[f'{x:.1%}' for x in shares]}; {family} "
+          f"kernels run by a traced replay {ran[family]} (its captures "
+          f"recorded {want[family]}; wrapper calls of the eager requests "
+          f"{[e[3] for e in res['eager']]}); top scores "
+          f"{np.round(h.score[h.valid][:5], 3).tolist()}")
+    return ran
+
+
+def main_path(torch, img, profiling, syn, det):
+    """The 15-channel path: a warm-up request (its scene captures the first
+    keys), then per scene preprocess_cloud and graph_turns. Returns the
+    kernel wrapper calls of the phase (warm-up and captures, the eager
+    requests) and the kernels the traced replays ran."""
     t0 = time.perf_counter()
     p, cs, vp = scene(syn, 100)
     det.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
-               generator=torch.Generator(device="cuda").manual_seed(100),
-               verbose=False)
+               generator=seeded(torch, 100), verbose=False)
     print(f"warm-up request: {time.perf_counter() - t0:.3f} s")
 
     reset_counts(img)
+    ran = {"raster_blocks": 0, "raster_sums": 0}
+    traces = tempfile.TemporaryDirectory()
     for r in range(REQUESTS):
         p, cs, vp = scene(syn, r)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
-        n_cloud = int(cloud.mask.sum())
+        torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
-        out = det.detect(cloud, verbose=False,
-                         generator=torch.Generator(device="cuda").manual_seed(r))
-        h = out.to_host()
-        scores = h.score[h.valid]
-        rt, ct = det.last_runtimes, det.last_counts
-        print(f"request {r}: raw {len(p)} points, processed {n_cloud} "
-              f"(capacity {cloud.capacity}); samples {ct['samples']}, "
-              f"candidates {ct['candidates']}, selected {ct['selected']}; "
-              f"preprocess {t_pre:.4f} s, detect {rt['detect']:.4f} s, "
-              f"select {rt['select']:.4f} s, detect total {rt['total']:.4f} s; "
-              f"top scores {np.round(scores[:5], 3).tolist()}")
-        if ct["selected"] < 1:
-            fail(f"request {r} selected no grasp")
-        if not np.all(np.isfinite(scores)):
-            fail(f"request {r} has non-finite scores")
+        print(f"request {r}: raw {len(p)} points, preprocess {t_pre:.4f} s")
+        r_ran = graph_turns(
+            torch, img, profiling, det, lambda: det.detect(
+                cloud, generator=seeded(torch, r), verbose=False),
+            f"request {r}", "raster_blocks",
+            os.path.join(traces.name, f"detect_{r}"))
+        for k, v in r_ran.items():
+            ran[k] += v
+    traces.cleanup()
     launches = counts(img)
     if launches["raster_blocks"] < 1:
         fail("the 15-channel path never launched raster_blocks")
-    print(f"launches on the 15-channel path: {launches} "
-          f"({launches['raster_blocks'] / REQUESTS:.2f} raster_blocks per "
-          f"request)")
-    return launches
+    print(f"launches on the 15-channel path: wrapper calls {launches} "
+          f"(warm-ups and captures, and {3 * REQUESTS} eager requests, "
+          f"{REQUESTS} of them traced); "
+          f"{len(det.graphs)} graphs captured; traced replays ran "
+          f"{ran['raster_blocks'] / REQUESTS:.2f} raster_blocks per request")
+    return launches, {**ran, "raster_sums2": 0}
 
 
 CFG_3CH = """\
@@ -549,41 +680,36 @@ def single_camera_scenes(syn, pcd, tmp, seeds):
     return paths, cam
 
 
-def entry_point_3ch(torch, img, pcd, det, paths):
-    """Warm-up on paths[0], then one detect_file request per other path."""
+def entry_point_3ch(torch, img, profiling, pcd, det, paths, tmp):
+    """Warm-up on paths[0], then graph_turns of detect_file per other path.
+    Returns the phase's kernel wrapper calls and the kernels the traced
+    replays ran."""
     t0 = time.perf_counter()
-    det.detect_file(paths[0], verbose=False,
-                    generator=torch.Generator(device="cuda").manual_seed(100))
+    det.detect_file(paths[0], verbose=False, generator=seeded(torch, 100))
     print(f"3-channel warm-up request: {time.perf_counter() - t0:.3f} s")
     reset_counts(img)
+    ran = {"raster_blocks": 0, "raster_sums": 0}
     for r, path in enumerate(paths[1:]):
-        n_raw = len(pcd.load_cloud_file(path))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = det.detect_file(
-            path, verbose=False,
-            generator=torch.Generator(device="cuda").manual_seed(r))
-        t_total = time.perf_counter() - t0
-        h = out.to_host()
-        scores = h.score[h.valid]
-        rt, ct = det.last_runtimes, det.last_counts
-        print(f"3-channel request {r}: raw {n_raw} points, processed "
-              f"{ct['points']} (capacity {ct['capacity']}); samples "
-              f"{ct['samples']}, candidates {ct['candidates']}, selected "
-              f"{ct['selected']}; detect {rt['detect']:.4f} s, detect total "
-              f"{rt['total']:.4f} s, detect_file total {t_total:.4f} s; "
-              f"top scores {np.round(scores[:5], 3).tolist()}")
-        if ct["selected"] < 1:
-            fail(f"3-channel request {r} selected no grasp")
-        if not np.all(np.isfinite(scores)):
-            fail(f"3-channel request {r} has non-finite scores")
+        print(f"3-channel request {r}: raw {len(pcd.load_cloud_file(path))} "
+              f"points")
+        r_ran = graph_turns(
+            torch, img, profiling, det, lambda: det.detect_file(
+                path, verbose=False, generator=seeded(torch, r)),
+            f"3-channel request {r} (detect_file, file read and preprocess "
+            f"included)", "raster_sums",
+            os.path.join(tmp, f"detect_file_{r}"))
+        for k, v in r_ran.items():
+            ran[k] += v
     launches = counts(img)
     if launches["raster_sums"] < 1:
         fail("the 3-channel path never launched raster_sums")
-    print(f"launches on the 3-channel path: {launches} "
-          f"({launches['raster_sums'] / REQUESTS:.2f} raster_sums per "
-          f"request)")
-    return launches
+    print(f"launches on the 3-channel path: wrapper calls {launches} "
+          f"(warm-ups and captures, and {3 * REQUESTS} eager requests, "
+          f"{REQUESTS} of them traced); "
+          f"{len(det.graphs)} graphs captured; traced replays ran "
+          f"{ran['raster_sums'] / REQUESTS:.2f} raster_sums per request")
+    return launches, {"raster_blocks": 0, "raster_sums": ran["raster_sums"],
+                      "raster_sums2": 0}
 
 
 def cli_3ch(detect_grasps, pcd, path, cam, tmp):
@@ -958,9 +1084,12 @@ def traced(profiling, fn, d):
 def read_trace(events, span_names, label, n_top):
     """Prints a traced request's device busy share over its window (the
     union of kernel intervals from the first span's start to the last
-    one's end), each span's host time and the device time of the kernels
-    launched inside it, and the n_top kernels with the most time with the
-    operators that launched them."""
+    one's end), the idle time in gaps under 20 us (kernel to kernel on the
+    card) and its three longest idle gaps, each span's host time and
+    the device time of the kernels launched inside it, and the n_top
+    kernels with the most time with the operators that launched them.
+    Returns the window's ms, busy share, kernel ms and host launch
+    calls."""
     kernels = [e for e in events if e.get("cat") == "kernel"
                and e.get("ph") == "X"]
     spans = {e["name"]: e for e in events if e.get("ph") == "X"
@@ -972,12 +1101,14 @@ def read_trace(events, span_names, label, n_top):
         fail(f"the profiler trace lacks spans: {sorted(spans)}")
     w0 = min(e["ts"] for e in spans.values())
     w1 = max(e["ts"] + e["dur"] for e in spans.values())
-    busy, end = 0.0, w0
+    busy, end, gaps = 0.0, w0, []
     for e in sorted(kernels, key=lambda e: e["ts"]):
         a, b = max(e["ts"], end), min(e["ts"] + e["dur"], w1)
         if b > a:
+            gaps.append((a - end, end - w0))
             busy += b - a
             end = b
+    gaps.append((w1 - end, end - w0))
     # Each kernel's launch on the host (the runtime call with its
     # correlation id) and the operator that launched it (the cpu_op with
     # its External id).
@@ -1000,32 +1131,92 @@ def read_trace(events, span_names, label, n_top):
         by_name[e["name"]] = (t + e["dur"], n + 1, ops | {op})
     total = sum(v[0] for v in by_name.values())
     # Launch calls on the host: one per kernel eagerly, one per graph.
-    calls = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                and "Launch" in e.get("name", "") and w0 <= e["ts"] <= w1)
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "") and w0 <= e["ts"] <= w1]
+    calls = len(launches)
     print(f"profiler, {label}: window {(w1 - w0) / 1e3:.2f} ms, "
           f"{len(kernels)} kernel launches of {len(by_name)} kernels from "
           f"{calls} host launch calls, "
           f"{total / 1e3:.2f} ms of kernel time; device busy "
-          f"{busy / (w1 - w0):.1%} of the window; " + "; ".join(parts))
+          f"{busy / (w1 - w0):.1%} of the window; idle in gaps under 20 "
+          f"us {sum(g for g, _ in gaps if g < 20) / 1e3:.2f} ms in "
+          f"{sum(1 for g, _ in gaps if 0 < g < 20)}; longest idle gaps (ms "
+          f"at ms into the window) " + ", ".join(
+              f"{g / 1e3:.2f} at {at / 1e3:.2f}"
+              for g, at in sorted(gaps, reverse=True)[:3]) + "; " +
+          "; ".join(parts))
+    if calls <= 20:
+        print("  host launch calls (ms at ms into the window, host ms): " +
+              ", ".join(f"{e['name']} at {(e['ts'] - w0) / 1e3:.2f} "
+                        f"{e['dur'] / 1e3:.3f}" for e in launches))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
     for kname, (t, n, ops) in top:
         print(f"  {t / 1e3:8.3f} ms {n:5d} calls  from "
               f"{', '.join(sorted(ops))[:80]}: {kname[:100]}")
+    return dict(window_ms=(w1 - w0) / 1e3, busy=busy / (w1 - w0),
+                kernel_ms=total / 1e3, calls=calls)
 
 
 def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
-    """One 15-channel detect request and two CEM requests, by the loop and
-    by the fused route (request 0's scene), under profiling.maybe_trace,
-    each read by read_trace. The loop goes first: a capture empties the
-    allocator's cache, which the next eager requests refill. The fused
-    replay must run the launches its capture recorded."""
+    """Two 15-channel detect requests, by the graph route (replays of seen
+    keys) and by the eager route, and two CEM requests, by the loop and by
+    the fused route (request 0's scene), under profiling.maybe_trace, each
+    read by read_trace; beside detect's, each route's traced kernel time
+    over the median total of three untraced requests of the route (under
+    the profiler a graph's launch call takes milliseconds on the host, the
+    card idle meanwhile). The CEM loop goes before the fused capture: a
+    capture empties the allocator's cache, which the next eager requests
+    refill. Each replay must run the launches its captures recorded."""
     p, cs, vp = scene(syn, 0)
     cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+
+    def untraced_ms(eager):
+        """The median detect total of three untraced requests."""
+        det._force_eager = eager
+        try:
+            totals = []
+            for _ in range(3):
+                det.detect(cloud, generator=seeded(torch, 0), verbose=False)
+                totals.append(det.last_runtimes["total"] * 1e3)
+        finally:
+            det._force_eager = False
+        return float(np.median(totals))
+    plain = {"graph": untraced_ms(False), "eager": untraced_ms(True)}
+    n_graphs = len(det.graphs)
     events = traced(profiling, lambda: det.detect(
         cloud, generator=seeded(torch, 0), verbose=False),
         os.path.join(tmp, "detect"))
-    read_trace(events, ("detect_core", "select_and_cluster"),
-               "15-channel detect request", 10)
+    graph = read_trace(events, ("detect_core", "select_and_cluster"),
+                       "15-channel detect request, graph route (replays)",
+                       10)
+    ran = span_launches(events, "detect_core")
+    want = {"raster_blocks": 0, "raster_sums": 0}
+    for k in det.last_graphs:
+        for family, n in captured_launches(det.graphs[k]).items():
+            want[family] += n
+    if ran != want or len(det.graphs) != n_graphs:
+        fail(f"the traced detect replay ran {ran}, its captures recorded "
+             f"{want}; graphs {n_graphs} -> {len(det.graphs)}")
+    det._force_eager = True
+    try:
+        events = traced(profiling, lambda: det.detect(
+            cloud, generator=seeded(torch, 0), verbose=False),
+            os.path.join(tmp, "detect_eager"))
+    finally:
+        det._force_eager = False
+    eager = read_trace(events, ("detect_core", "select_and_cluster"),
+                       "15-channel detect request, eager route", 5)
+    print(f"profiler, detect graph route vs eager route: kernel time "
+          f"{graph['kernel_ms']:.2f} vs {eager['kernel_ms']:.2f} ms "
+          f"({graph['kernel_ms'] / eager['kernel_ms'] - 1:+.2%}), window "
+          f"{graph['window_ms']:.2f} vs {eager['window_ms']:.2f} ms, busy "
+          f"{graph['busy']:.1%} vs {eager['busy']:.1%}, host launch calls "
+          f"{graph['calls']} vs {eager['calls']}; the traced kernel time "
+          f"over the median untraced request (detect total, 3 requests "
+          f"each) {graph['kernel_ms'] / plain['graph']:.1%} of "
+          f"{plain['graph']:.2f} ms vs {eager['kernel_ms'] / plain['eager']:.1%}"
+          f" of {plain['eager']:.2f} ms; raster_blocks kernels of the replay "
+          f"{ran['raster_blocks']} (captured {want['raster_blocks']})")
     sis = cem.SequentialImportanceSampling(det, CEMConfig())
     sis._force_loop = True
     events = traced(profiling, lambda: sis.detect(
@@ -1613,12 +1804,14 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
         return rows
     hp = capi.create_detector(cfg)
     c_detect()                                               # warm-up
+    c_path = ("C ABI gpd_detect_grasps_in_cloud (wrapper calls: a graph "
+              "replay calls none)")
     ms = {"C ABI": [], "capi": [], "api": []}
     for name in ("C ABI", "capi", "api", "api", "capi", "C ABI"):
         reset_counts(img)
         if name == "C ABI":
             rows, t = host_ms(torch, c_detect)
-            by_path["C ABI gpd_detect_grasps_in_cloud"] = counts(img)
+            by_path[c_path] = counts(img)
         elif name == "capi":
             expect, t = host_ms(torch, lambda: capi.detect_in_cloud(
                 hp, p, vp, cs, seed=0))
@@ -1635,7 +1828,8 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
           f"score gap {sc}, identical {ok and np.array_equal(rows, expect)}; "
           f"ms in turns: C ABI {ms['C ABI']}, capi {ms['capi']}, api "
           f"(serving buckets) {ms['api']}; raster_blocks launches "
-          f"{by_path['C ABI gpd_detect_grasps_in_cloud']['raster_blocks']}")
+          f"{by_path[c_path]['raster_blocks']} (wrapper calls: a graph "
+          f"replay calls none)")
     if not ok or geo > 1e-5 or sc > 1e-3 or not np.array_equal(
             rows[:, 17:], expect[:, 17:]):
         fail("the C ABI's rows are not capi.detect_in_cloud's")
@@ -1934,7 +2128,7 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
-    launches15 = main_path(torch, img, syn, det)
+    launches15, replay15 = main_path(torch, img, profiling, syn, det)
     print(f"peak device memory over the 15-channel requests: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     p, cs, vp = scene(syn, 0)
@@ -1942,7 +2136,10 @@ def main():
         p, view_points=vp, cam_source=cs), img.raster_blocks,
         "15 channels, request 0 scene")
     cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig)
-    by_path = {"detect, 15 channels": launches15,
+    by_path = {"detect, 15 channels (wrapper calls: warm-ups, captures, "
+               "9 eager requests)": launches15,
+               "detect, 15 channels, graph route (3 traced replays, from "
+               "the trace)": replay15,
                "CEM fused, 15 channels (4 traced replays, from the trace)":
                    cem_launches["fused"],
                "CEM loop, 15 channels (8 requests)": cem_launches["loop"],
@@ -1974,7 +2171,8 @@ def main():
             camera_position=tuple(cam[0].tolist()))
         torch.cuda.reset_peak_memory_stats()
         det3 = GraspDetector(cfg3, device="cuda")
-        launches3 = entry_point_3ch(torch, img, pcd, det3, paths)
+        launches3, replay3 = entry_point_3ch(torch, img, profiling, pcd,
+                                             det3, paths, tmp)
         print(f"peak device memory over the 3-channel requests: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         stage_breakdown(torch, det3, lambda: det3.preprocess_cloud(
@@ -1982,7 +2180,10 @@ def main():
             capacity="serve"), img.raster_sums,
             "3 channels, request 0 scene, preprocess includes the file read")
         cfg_path = cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
-        by_path["detect_file, 3 channels"] = launches3
+        by_path["detect_file, 3 channels (wrapper calls: warm-ups, "
+                "captures, 9 eager requests)"] = launches3
+        by_path["detect_file, 3 channels, graph route (3 traced replays, "
+                "from the trace)"] = replay3
         for name, launches in clis_3ch(
                 img, cem_detect_grasps, detect_grasps, generate_candidates,
                 cfg_path, paths[1], tmp).items():

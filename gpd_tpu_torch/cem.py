@@ -57,19 +57,16 @@ import torch
 from gpd_tpu_torch import profiling
 from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
-from gpd_tpu_torch.detector import (GraspDetector, candidates_stage,
+from gpd_tpu_torch.detector import (CapturedGraph, GraspDetector,
+                                    candidates_stage, clone_tree,
                                     score_candidates, select_and_cluster)
 from gpd_tpu_torch.net.lenet import LeNet
 from gpd_tpu_torch.ops import draws
-from gpd_tpu_torch.ops import images as img
 from gpd_tpu_torch.ops import preprocess as pp
 from gpd_tpu_torch.parallel import sharded
 
 SUM_OF_GAUSSIANS = draws.SUM_OF_GAUSSIANS
 MAX_OF_GAUSSIANS = draws.MAX_OF_GAUSSIANS
-
-# The kernel wrappers whose calls a capture records into its graph.
-_KERNELS = (img.raster_blocks, img.raster_sums, img.raster_sums2)
 
 
 def _merge_pruned(scored: Sequence[Grasps], min_score: float) -> Grasps:
@@ -164,75 +161,6 @@ def _read_counts(out: Grasps, counts: torch.Tensor) -> Tuple[List[int], int]:
     return counts, n_final
 
 
-class _Captured:
-    """``_cem_program`` captured as one CUDA graph for one static key, with
-    the graph's input cloud, its generator and its outputs.
-
-    The capture follows PyTorch's recipe: one eager run on a side stream
-    first (it builds the kernels, makes every device constant and sets up
-    cuBLAS and cuDNN), then the capture into ``pool``, which every key of
-    one ``SequentialImportanceSampling`` shares. Sharing is safe because a
-    replay reads no pool memory that it did not write itself, replays run
-    one at a time on the caller's stream, and each replay's outputs are
-    cloned before the next can start; the pool then holds about one key's
-    working set, not the sum over keys. The raster launchers call
-    ``cudaFuncSetAttribute`` and the occupancy query during the capture
-    too; neither is a stream operation, and a capture accepts both. The
-    program draws from a generator registered with the graph, so a replay
-    draws what an eager run from the same state draws and advances it as
-    far. Anything that cannot be captured (a read back to the host, a
-    launch error) raises here.
-
-    The kernel wrappers count their calls as always: the warm-up's, and the
-    capture's, whose launches go into the graph (``launches``, per wrapper
-    in ``_KERNELS``' order). A replay calls no wrapper; what it runs on
-    the card shows in a profiler trace of it."""
-
-    def __init__(self, cloud: CloudArrays, net: LeNet,
-                 generator: torch.Generator, args: tuple, pool):
-        device = cloud.device
-        t0 = time.perf_counter()
-        self.net = net               # keeps id(net) of the key taken
-        self.cloud = CloudArrays(**{f.name: getattr(cloud, f.name).clone()
-                                    for f in dataclasses.fields(CloudArrays)})
-        self.gen = torch.Generator(device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self.gen.set_state(generator.get_state())
-            _cem_program(self.cloud, net, self.gen, *args)
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(self.gen)
-        before = [k.launches for k in _KERNELS]
-        # torch.cuda.graph empties the allocator's cache first; emptied
-        # here, the growth of reserved memory is what the capture adds to
-        # the pool.
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        with torch.cuda.graph(self.graph, pool=pool):
-            self.out, self.counts = _cem_program(self.cloud, net, self.gen,
-                                                 *args)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.launches = [k.launches - b for k, b in zip(_KERNELS, before)]
-        self.capture_s = time.perf_counter() - t0
-
-    def replay(self, cloud: CloudArrays, generator: torch.Generator
-               ) -> Tuple[Grasps, torch.Tensor]:
-        """One request: the cloud into the graph's inputs, the generator's
-        state in and back out, one replay. The outputs are clones, so a
-        later replay cannot change what a caller holds."""
-        for f in dataclasses.fields(CloudArrays):
-            getattr(self.cloud, f.name).copy_(getattr(cloud, f.name))
-        self.gen.set_state(generator.get_state())
-        self.graph.replay()
-        generator.set_state(self.gen.get_state())
-        return (Grasps(**{f.name: getattr(self.out, f.name).clone()
-                          for f in dataclasses.fields(Grasps)}),
-                self.counts.clone())
-
-
 class SequentialImportanceSampling:
     """CEM grasp detector (reference: include/gpd/
     sequential_importance_sampling.h) on the detector's device, sharded over
@@ -321,9 +249,16 @@ class SequentialImportanceSampling:
             with profiling.span("cem_capture"):
                 if self.pool is None:
                     self.pool = torch.cuda.graph_pool_handle()
-                self.graphs[key] = _Captured(cloud, net, gen, args, self.pool)
+                private = torch.Generator(device=cloud.device)
+                private.set_state(gen.get_state())
+                self.graphs[key] = CapturedGraph(
+                    cloud.device, lambda g, c: _cem_program(c, net, g, *args),
+                    (cloud,), private, self.pool)
         with profiling.span("cem_program"):
-            out, counts = self.graphs[key].replay(cloud, gen)
+            entry = self.graphs[key]
+            entry.gen.set_state(gen.get_state())
+            out, counts = clone_tree(entry.replay(cloud))
+            gen.set_state(entry.gen.get_state())
             return (out, *_read_counts(out, counts))
 
     def _detect_loop(self, cloud: CloudArrays, gen: torch.Generator
