@@ -23,7 +23,19 @@ Phases; any failure exits non-zero and prints no result line:
      values within atol 1e-3 + rtol 1e-5;
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
-     synthetic two-camera table scenes, one warm-up and 3 scenes. detect
+     synthetic two-camera table scenes, one warm-up and 3 scenes.
+     preprocess_cloud runs gpd_tpu's preprocess programs (workspace filter
+     and voxels, normals; the outlier filter at 3 channels), each a CUDA
+     graph captured at the first request of its key, with the host
+     compactions between them. Per scene, preprocess by route: the first
+     request apart (each new key's capture ms and pool bytes), then the
+     graph route and the eager route (_force_eager) in turns (graph, eager,
+     eager, graph), then one traced request by each route (window, busy
+     share, host launch calls, kernel time of its preprocess span); every
+     graph cloud must hold the eager cloud's mask and points exactly and
+     no larger share of normals more than 1e-5 apart than the eager cloud
+     holds against the CPU route's on the same input, and a request of
+     seen keys must capture nothing. Then detect, which
      runs as three CUDA graphs (A: samples and candidates, then one read of
      A's counts, B: images and scores over the live chunks, C: selection),
      each captured at the first request of its key. Per scene the first
@@ -39,7 +51,9 @@ Phases; any failure exits non-zero and prints no result line:
      kernel wrapper, and the traced replay must run in its detect_core
      span the raster_blocks kernels its captures recorded; then request
      0's scene once more through detect with sync_stages (the eager
-     route), so each stage's time is its own (host clock);
+     route), so each stage's time is its own (host clock). Per scene
+     last, whole requests (preprocess_cloud + detect) by the graph routes
+     and the eager routes in turns, beside the 100 ms request limit;
   5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
      scenes, one warm-up, then per scene with SUM_OF_GAUSSIANS and for
      request 0's scene with MAX_OF_GAUSSIANS the fused route (the default
@@ -82,7 +96,8 @@ Phases; any failure exits non-zero and prints no result line:
      directory, at the default widths with 3 channels, 1000 samples, the
      packaged 3-channel weights and outlier removal, sampling above the
      plane and plane removal before the images all on; one warm-up, then
-     per scene what phase 4 does per scene (its graphs run raster_sums),
+     per scene what phase 4 does per scene (its graphs run raster_sums;
+     preprocess with the outlier filter, on the points read once),
      a stage breakdown, and the detect_grasps CLI once with a
      normals CSV and a CSV output; then the cem_detect_grasps (the fused
      route, raster_sums in a CUDA graph; traced, its replay must run the
@@ -100,7 +115,7 @@ Phases; any failure exits non-zero and prints no result line:
      of it (the profiler makes a graph's launch call slow); CEM's
      loop first, the fused one a replay of a captured graph that must run
      the captured launches (after phase 15, one
-     generate_view and 20 training steps too) under profiling.maybe_trace:
+     generate_view too) under profiling.maybe_trace:
      the device's busy share of each window, its kernel launches and host
      launch calls, each span's host time and the device time of the kernels
      launched inside it, the window's longest idle gaps, and the device
@@ -119,9 +134,16 @@ Phases; any failure exits non-zero and prints no result line:
      candidates relabeled on the card and on the CPU (>= 99% agreement);
      one attempt's steps timed apart;
  15. training: net.train.fit on the generated instances of views 0-1 from
-     memory (batch 64, lr 1e-3, wd 5e-4, two epochs): ms per step, the
+     memory (batch 64, lr 1e-3, wd 5e-4, two epochs; each step a replay of
+     one CUDA graph, evaluation one per batch shape): ms per step, the
      loss must fall, held-out (view 2) accuracy; one step on the card and
-     on the CPU from the same parameters and batch, and their gaps;
+     on the CPU from the same parameters and batch, and their gaps; then
+     training by route (after phase 11's generate_view trace): 20 steps
+     of StepGraphs.train_step (the graph) and of the eager train_step from
+     the same parameters under deterministic cuDNN (losses and parameters
+     within 1e-6 of each tensor's largest entry), ms a step in turns, and
+     one traced pass of 20 steps by each route (busy share, host launch
+     calls, kernel time);
  16. weights: the trained parameters as npz, ONNX (by the convert_weights
      CLI), a torch state dict and a raw .bin directory; a card detector
      from each holds them exactly and selects identically on scene 0;
@@ -507,17 +529,125 @@ def scene(syn, seed):
 
 def graph_keys_line(det, n_before, t_first):
     """A request's first-request report: what it captured (the keys it
-    added to det.graphs, each capture's ms), the shared pool after it, and
-    its ms."""
-    new = [k for k in det.last_graphs if k in list(det.graphs)[n_before:]]
+    added to det.graphs, each capture's ms and the pool bytes it added),
+    the shared pool after it, and its ms."""
+    new = list(det.graphs)[n_before:]
     if not new:
         return f"first request {t_first * 1e3:.2f} ms, keys seen"
-    caps = ", ".join(f"{k[0]} {det.graphs[k].capture_s * 1e3:.2f}"
-                     for k in new)
+    caps = ", ".join(f"{k[0]} {det.graphs[k].capture_s * 1e3:.2f} "
+                     f"(+{det.graphs[k].pool_bytes} bytes)" for k in new)
     pool = sum(e.pool_bytes for e in det.graphs.values())
     return (f"first request {t_first * 1e3:.2f} ms, of it warm-up + "
             f"capture ms {caps}; the shared pool {pool} bytes over "
             f"{len(det.graphs)} graphs")
+
+
+def normals_gaps(a, b):
+    """(points compared, share of them whose normals are more than 1e-5
+    apart, the largest gap): over the valid points of cloud ``a`` that
+    cloud ``b`` holds at the same position."""
+    pa, na = (t[a.mask].cpu().numpy() for t in (a.points, a.normals))
+    pb, nb = (t[b.mask].cpu().numpy() for t in (b.points, b.normals))
+    row = {p.tobytes(): i for i, p in enumerate(pb)}
+    pairs = np.array([(i, row[p.tobytes()]) for i, p in enumerate(pa)
+                      if p.tobytes() in row])
+    if not len(pairs):
+        fail("two preprocessed clouds share no point")
+    gap = np.abs(na[pairs[:, 0]] - nb[pairs[:, 1]]).max(1)
+    return len(pairs), float((gap > 1e-5).mean()), float(gap.max())
+
+
+def in_turns(torch, det, request):
+    """request() by the detector's graph routes (the default) and its eager
+    routes (_force_eager) in turns, graph, eager, eager, graph, each timed
+    on the host to a device sync. Returns {route: [(ms, result, the keys a
+    graph request replayed)]}."""
+    res = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        det._force_eager = route == "eager"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = request()
+            torch.cuda.synchronize()
+        finally:
+            det._force_eager = False
+        res[route].append((round((time.perf_counter() - t0) * 1e3, 2), out,
+                           [k[0] for k in det.last_graphs]))
+    return res
+
+
+def preprocess_turns(torch, profiling, det, cpu_det, request, label, d):
+    """One scene's preprocess_cloud (``request(detector)``) by its graph
+    route (the default: one CUDA graph per program and key) and its eager
+    route (_force_eager): the first request apart (what it captured, each
+    new key's capture ms and pool bytes), then in_turns, then one traced
+    request by each route, read by read_trace over its ``preprocess``
+    span and on to the device sync after it (window, busy share, host
+    launch calls, kernel time). The CPU route (``cpu_det``) on the same
+    input sets the normals tolerance: each graph cloud must hold the eager
+    cloud's mask and points exactly, and no larger share of normals more
+    than 1e-5 apart (matched by position) than the eager cloud holds
+    against the CPU's; a request of seen keys must capture nothing."""
+    n_graphs = len(det.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    request(det)
+    torch.cuda.synchronize()
+    first = graph_keys_line(det, n_graphs, time.perf_counter() - t0)
+    n_graphs = len(det.graphs)
+    res = in_turns(torch, det, lambda: request(det))
+    if len(det.graphs) != n_graphs:
+        fail(f"{label}: a preprocess request of seen keys captured a graph")
+    eager = res["eager"][0][1]
+    n_cpu, share_cpu, max_cpu = normals_gaps(eager, request(cpu_det))
+    gaps = []
+    for _, cloud, _ in res["graph"]:
+        if not (torch.equal(cloud.mask, eager.mask)
+                and torch.equal(cloud.points, eager.points)):
+            fail(f"{label}: the graph route's cloud leaves the eager "
+                 f"route's mask or points")
+        gaps.append(normals_gaps(cloud, eager))
+        if gaps[-1][1] > share_cpu:
+            fail(f"{label}: {gaps[-1][1]:.2e} of the graph route's normals "
+                 f"are more than 1e-5 off the eager route's, which is "
+                 f"{share_cpu:.2e} off the CPU's")
+
+    def synced():
+        # preprocess_cloud returns before the card ends its last program:
+        # the window runs on to the device sync.
+        with profiling.span("preprocess_request"):
+            request(det)
+            torch.cuda.synchronize()
+    spans = ("preprocess_request", "preprocess")
+    graph = read_trace(traced(profiling, synced, d), spans,
+                       f"{label}, graph route", 0)
+    det._force_eager = True
+    try:
+        eager_trace = read_trace(traced(profiling, synced, d + "_eager"),
+                                 spans, f"{label}, eager route", 0)
+    finally:
+        det._force_eager = False
+    print(f"{label}: {int(eager.mask.sum())} points (capacity "
+          f"{eager.capacity}); {first}; ms in turns: graph "
+          f"{[g[0] for g in res['graph']]}, eager "
+          f"{[e[0] for e in res['eager']]}; a graph request replayed "
+          f"{res['graph'][0][2]}; graph vs eager: masks and points equal, "
+          f"normals more than 1e-5 apart {[f'{g[1]:.2e}' for g in gaps]} "
+          f"(max {max(g[2] for g in gaps):.2e}); eager vs CPU on {n_cpu} "
+          f"shared points {share_cpu:.2e} (max {max_cpu:.2e}); traced busy "
+          f"{graph['busy']:.1%} vs {eager_trace['busy']:.1%}, host launch "
+          f"calls {graph['calls']} vs {eager_trace['calls']}, kernel time "
+          f"{graph['kernel_ms']:.2f} vs {eager_trace['kernel_ms']:.2f} ms")
+
+
+def request_turns(torch, det, request, label):
+    """A whole request, preprocess_cloud + detect (``request()``), by
+    in_turns, beside the 100 ms request limit (PERF.md section 2)."""
+    res = in_turns(torch, det, request)
+    print(f"{label}: preprocess_cloud + detect, ms in turns: graph "
+          f"{[g[0] for g in res['graph']]}, eager "
+          f"{[e[0] for e in res['eager']]} (request limit 100 ms)")
 
 
 def graph_turns(torch, img, profiling, det, request, label, family, d):
@@ -613,28 +743,32 @@ def graph_turns(torch, img, profiling, det, request, label, family, d):
     return ran
 
 
-def main_path(torch, img, profiling, syn, det):
+def main_path(torch, img, profiling, syn, det, cpu_det):
     """The 15-channel path: a warm-up request (its scene captures the first
-    keys), then per scene preprocess_cloud and graph_turns. Returns the
-    kernel wrapper calls of the phase (warm-up and captures, the eager
-    requests) and the kernels the traced replays ran."""
+    keys), then per scene preprocess_turns, graph_turns of detect and
+    request_turns. Returns the kernel wrapper calls of the phase (warm-up
+    and captures, the eager requests) and the kernels the traced replays
+    ran."""
     t0 = time.perf_counter()
     p, cs, vp = scene(syn, 100)
     det.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
                generator=seeded(torch, 100), verbose=False)
-    print(f"warm-up request: {time.perf_counter() - t0:.3f} s")
+    print(f"warm-up request (preprocess_cloud + detect): "
+          f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
 
     reset_counts(img)
     ran = {"raster_blocks": 0, "raster_sums": 0}
     traces = tempfile.TemporaryDirectory()
     for r in range(REQUESTS):
         p, cs, vp = scene(syn, r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
-        torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t0
-        print(f"request {r}: raw {len(p)} points, preprocess {t_pre:.4f} s")
+        print(f"request {r}: raw {len(p)} points")
+
+        def prep(d, p=p, cs=cs, vp=vp):
+            return d.preprocess_cloud(p, view_points=vp, cam_source=cs)
+        preprocess_turns(torch, profiling, det, cpu_det, prep,
+                         f"request {r} preprocess",
+                         os.path.join(traces.name, f"preprocess_{r}"))
+        cloud = prep(det)
         r_ran = graph_turns(
             torch, img, profiling, det, lambda: det.detect(
                 cloud, generator=seeded(torch, r), verbose=False),
@@ -642,12 +776,15 @@ def main_path(torch, img, profiling, syn, det):
             os.path.join(traces.name, f"detect_{r}"))
         for k, v in r_ran.items():
             ran[k] += v
+        request_turns(torch, det, lambda: det.detect(
+            prep(det), generator=seeded(torch, r), verbose=False),
+            f"request {r}")
     traces.cleanup()
     launches = counts(img)
     if launches["raster_blocks"] < 1:
         fail("the 15-channel path never launched raster_blocks")
     print(f"launches on the 15-channel path: wrapper calls {launches} "
-          f"(warm-ups and captures, and {3 * REQUESTS} eager requests, "
+          f"(warm-ups and captures, and {5 * REQUESTS} eager requests, "
           f"{REQUESTS} of them traced); "
           f"{len(det.graphs)} graphs captured; traced replays ran "
           f"{ran['raster_blocks'] / REQUESTS:.2f} raster_blocks per request")
@@ -680,18 +817,27 @@ def single_camera_scenes(syn, pcd, tmp, seeds):
     return paths, cam
 
 
-def entry_point_3ch(torch, img, profiling, pcd, det, paths, tmp):
-    """Warm-up on paths[0], then graph_turns of detect_file per other path.
-    Returns the phase's kernel wrapper calls and the kernels the traced
-    replays ran."""
+def entry_point_3ch(torch, img, profiling, pcd, det, cpu_det, paths, tmp):
+    """Warm-up on paths[0], then per other path preprocess_turns of its
+    points (read once; the serving buckets and the camera of detect_file),
+    graph_turns of detect_file and request_turns. Returns the phase's
+    kernel wrapper calls and the kernels the traced replays ran."""
     t0 = time.perf_counter()
     det.detect_file(paths[0], verbose=False, generator=seeded(torch, 100))
-    print(f"3-channel warm-up request: {time.perf_counter() - t0:.3f} s")
+    print(f"3-channel warm-up request (detect_file): "
+          f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
     reset_counts(img)
     ran = {"raster_blocks": 0, "raster_sums": 0}
+    cam = np.asarray(det.cfg.camera_position, np.float32).reshape(1, 3)
     for r, path in enumerate(paths[1:]):
-        print(f"3-channel request {r}: raw {len(pcd.load_cloud_file(path))} "
-              f"points")
+        pts = pcd.load_cloud_file(path)
+        print(f"3-channel request {r}: raw {len(pts)} points")
+
+        def prep(d, pts=pts):
+            return d.preprocess_cloud(pts, view_points=cam, capacity="serve")
+        preprocess_turns(torch, profiling, det, cpu_det, prep,
+                         f"3-channel request {r} preprocess (outliers)",
+                         os.path.join(tmp, f"preprocess_file_{r}"))
         r_ran = graph_turns(
             torch, img, profiling, det, lambda: det.detect_file(
                 path, verbose=False, generator=seeded(torch, r)),
@@ -700,11 +846,14 @@ def entry_point_3ch(torch, img, profiling, pcd, det, paths, tmp):
             os.path.join(tmp, f"detect_file_{r}"))
         for k, v in r_ran.items():
             ran[k] += v
+        request_turns(torch, det, lambda: det.detect(
+            prep(det), generator=seeded(torch, r), verbose=False),
+            f"3-channel request {r} (file read apart)")
     launches = counts(img)
     if launches["raster_sums"] < 1:
         fail("the 3-channel path never launched raster_sums")
     print(f"launches on the 3-channel path: wrapper calls {launches} "
-          f"(warm-ups and captures, and {3 * REQUESTS} eager requests, "
+          f"(warm-ups and captures, and {5 * REQUESTS} eager requests, "
           f"{REQUESTS} of them traced); "
           f"{len(det.graphs)} graphs captured; traced replays ran "
           f"{ran['raster_sums'] / REQUESTS:.2f} raster_sums per request")
@@ -1408,10 +1557,9 @@ def datagen_breakdown(torch, detector, cand, datagen, det, unit):
           f"({prefix.nbytes / 1e6:.1f} MB)")
 
 
-def profile_offline(torch, profiling, datagen, train, lenet, det, unit,
-                    params, data, tmp):
-    """One generate_view and 20 training steps (batch 64, f32) under
-    profiling.maybe_trace, each in a span read by read_trace."""
+def profile_offline(torch, profiling, datagen, det, unit, tmp):
+    """One generate_view under profiling.maybe_trace, in a span read by
+    read_trace."""
     name, v, view, mesh = unit
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
 
@@ -1422,19 +1570,83 @@ def profile_offline(torch, profiling, datagen, train, lenet, det, unit,
             torch.cuda.synchronize()
     read_trace(traced(profiling, one_view, os.path.join(tmp, "datagen")),
                ("generate_view",), "generate_view (one view)", 5)
-    net = lenet.params_from_numpy(params, "cuda")
-    opt = train.make_optimizer(net)
+
+
+def training_routes(torch, profiling, train, lenet, params, data, tmp):
+    """Training steps by route, batch 64, f32, on the first 1280 generated
+    instances (20 batches): StepGraphs.train_step (one CUDA graph, its
+    capture's warm-up the first step) and the eager train_step. First 20
+    steps of each from ``params`` under deterministic cuDNN: the losses and
+    parameters must agree within 1e-6 (of each tensor's largest entry).
+    Then, under cuDNN's defaults, 20 steps a pass in turns (graph, eager,
+    eager, graph; ms a step by CUDA events), and one traced pass of each
+    route (read_trace of its train_steps span: busy share, host launch
+    calls, kernel time)."""
     x = torch.from_numpy(np.concatenate([d[0] for d in data])[:1280]).cuda()
     y = torch.from_numpy(np.concatenate([d[1] for d in data])[:1280]).cuda()
+    batches = [(x[i:i + 64], y[i:i + 64].long()) for i in range(0, 1280, 64)]
+    routes = {}
+    for route in ("graph", "eager"):
+        net = lenet.params_from_numpy(params, "cuda")
+        opt = train.make_optimizer(net)
+        graphs = train.StepGraphs("cuda")
+        routes[route] = (net, opt, graphs.train_step if route == "graph"
+                         else train.train_step, graphs)
 
-    def steps():
-        with profiling.span("train_steps"):
-            for i in range(0, len(y), 64):
-                train.train_step(net, opt, x[i:i + 64], y[i:i + 64].long())
-            torch.cuda.synchronize()
-    steps()                                               # warm-up
-    read_trace(traced(profiling, steps, os.path.join(tmp, "train")),
-               ("train_steps",), f"{len(y) // 64} training steps", 5)
+    def run(route, events=None):
+        net, opt, step, _ = routes[route]
+        out = []
+        for bx, by in batches:
+            out.append(step(net, opt, bx, by))
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        return out
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = {r: [float(l) for l, _ in run(r)] for r in routes}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    trained = {r: lenet.params_to_numpy(routes[r][0]) for r in routes}
+    loss_gap = float(np.abs(np.subtract(*losses.values())).max())
+    param_gap = max(float(np.abs(trained["graph"][k] - trained["eager"][k])
+                          .max() / np.abs(trained["eager"][k]).max())
+                    for k in trained["eager"])
+    if not (loss_gap <= 1e-6 and param_gap <= 1e-6):
+        fail(f"20 graph steps leave 20 eager steps: loss gap {loss_gap:.2e},"
+             f" parameter gap {param_gap:.2e}")
+    ms = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        events = []
+        run(route, events)
+        torch.cuda.synchronize()
+        ms[route].append(round(float(np.median(
+            [a.elapsed_time(b) for a, b in zip(events, events[1:])])), 4))
+    traces = {}
+    for route in routes:
+        def steps(route=route):
+            with profiling.span("train_steps"):
+                run(route)
+                torch.cuda.synchronize()
+        traces[route] = read_trace(
+            traced(profiling, steps, os.path.join(tmp, f"train_{route}")),
+            ("train_steps",), f"20 training steps, {route} route", 5)
+    graphs = routes["graph"][3].graphs
+    (entry,) = graphs.values()
+    print(f"training by route: 20 steps of each from the same parameters "
+          f"under deterministic cuDNN: loss gap {loss_gap:.2e}, parameter "
+          f"gap {param_gap:.2e} of each tensor's largest entry; the step's "
+          f"capture (its warm-up the first step) {entry.capture_s * 1e3:.2f} "
+          f"ms, pool {entry.pool_bytes} bytes; median ms/step in turns: "
+          f"graph {ms['graph']}, eager {ms['eager']}; traced 20 steps: "
+          f"host launch calls {traces['graph']['calls']} vs "
+          f"{traces['eager']['calls']} ({traces['graph']['calls'] / 20:.2f} "
+          f"vs {traces['eager']['calls'] / 20:.2f} a step), busy "
+          f"{traces['graph']['busy']:.1%} vs {traces['eager']['busy']:.1%}, "
+          f"kernel time {traces['graph']['kernel_ms']:.2f} vs "
+          f"{traces['eager']['kernel_ms']:.2f} ms, window "
+          f"{traces['graph']['window_ms']:.2f} vs "
+          f"{traces['eager']['window_ms']:.2f} ms")
 
 
 class Blocks:
@@ -1482,7 +1694,8 @@ def training_path(torch, lenet, train, data, units):
     first, last = float(loss[:w].mean()), float(loss[-w:].mean())
     net = lenet.params_from_numpy(params, "cuda")
     held_loss, held_acc = train.evaluate(net, held_set)
-    print(f"training: {len(train_set.labels)} instances, {len(loss)} steps "
+    print(f"training (fit, each step a CUDA graph replay): "
+          f"{len(train_set.labels)} instances, {len(loss)} steps "
           f"of 64 in {total:.3f} s, median {np.median(steps):.3f} ms/step "
           f"(p90 {np.percentile(steps, 90):.3f}); mean loss of the first "
           f"{w} steps {first:.4f}, of the last {w} {last:.4f}; held-out views "
@@ -2128,7 +2341,9 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
-    launches15, replay15 = main_path(torch, img, profiling, syn, det)
+    launches15, replay15 = main_path(torch, img, profiling, syn, det,
+                                     GraspDetector(DetectorConfig(),
+                                                   device="cpu"))
     print(f"peak device memory over the 15-channel requests: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     p, cs, vp = scene(syn, 0)
@@ -2137,7 +2352,7 @@ def main():
         "15 channels, request 0 scene")
     cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig)
     by_path = {"detect, 15 channels (wrapper calls: warm-ups, captures, "
-               "9 eager requests)": launches15,
+               "15 eager requests)": launches15,
                "detect, 15 channels, graph route (3 traced replays, from "
                "the trace)": replay15,
                "CEM fused, 15 channels (4 traced replays, from the trace)":
@@ -2171,8 +2386,9 @@ def main():
             camera_position=tuple(cam[0].tolist()))
         torch.cuda.reset_peak_memory_stats()
         det3 = GraspDetector(cfg3, device="cuda")
-        launches3, replay3 = entry_point_3ch(torch, img, profiling, pcd,
-                                             det3, paths, tmp)
+        launches3, replay3 = entry_point_3ch(
+            torch, img, profiling, pcd, det3,
+            GraspDetector(cfg3, device="cpu"), paths, tmp)
         print(f"peak device memory over the 3-channel requests: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         stage_breakdown(torch, det3, lambda: det3.preprocess_cloud(
@@ -2181,7 +2397,7 @@ def main():
             "3 channels, request 0 scene, preprocess includes the file read")
         cfg_path = cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
         by_path["detect_file, 3 channels (wrapper calls: warm-ups, "
-                "captures, 9 eager requests)"] = launches3
+                "captures, 15 eager requests)"] = launches3
         by_path["detect_file, 3 channels, graph route (3 traced replays, "
                 "from the trace)"] = replay3
         for name, launches in clis_3ch(
@@ -2191,8 +2407,8 @@ def main():
         api_15ch(api, DetectorConfig, pcd, paths[1], cam)
         pcd_routes(pcd, paths[1:] + [sensor_frame_pcd(pcd, tmp)])
         profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp)
-        profile_offline(torch, profiling, datagen, train, lenet, det,
-                        units[1], trained, data, tmp)
+        profile_offline(torch, profiling, datagen, det, units[1], tmp)
+        training_routes(torch, profiling, train, lenet, trained, data, tmp)
         weights_path(torch, syn, lenet, detector, GraspDetector,
                      DetectorConfig, convert_weights, trained, tmp)
 

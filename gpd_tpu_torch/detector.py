@@ -18,6 +18,11 @@ the stage-timed route and the staged route run eagerly, reading each count
 where they need it; with ``host_reads=False`` (CEM's fused program) every
 block runs, masked, and nothing is read back.
 
+``GraspDetector.preprocess_cloud`` runs gpd_tpu's preprocess programs
+(detector.py:40-66, 623-642) the same way: workspace filter and voxels,
+the outlier filter, normals, each a CUDA graph replay on a card and eager on
+the CPU, with the host compactions between them.
+
 Stage times are reported in the reference's format
 (grasp_detector.cpp:313-320).
 """
@@ -78,6 +83,46 @@ def _compact_hands(grasps: Grasps, cap: int) -> Grasps:
     """Valid hands to the front (stable), ``cap`` slots kept: the
     reference's createImageList compaction (image_generator.cpp:91-98)."""
     return grasps.take(torch.argsort(~grasps.valid, stable=True)[:cap])
+
+
+def _prep_filter_voxel(cloud: CloudArrays, workspace: tuple,
+                       cell_size: float, do_voxel: bool) -> CloudArrays:
+    """gpd_tpu's first preprocess program (detector.py:40-49): the workspace
+    filter, then the voxel downsample if ``do_voxel``."""
+    cloud = pp.filter_workspace(cloud, workspace)
+    if do_voxel:
+        cloud = pp.voxelize(cloud, cell_size)
+    return cloud
+
+
+# The statistical outlier filter's settings, gpd_tpu's defaults
+# (ops/preprocess.py:149) as the reference sets them (cloud.cpp:166-174).
+_OUTLIER_MEAN_K = 50
+_OUTLIER_STDDEV_MULT = 1.0
+
+
+def _prep_outliers(cloud: CloudArrays, mean_k: int,
+                   stddev_mult: float) -> CloudArrays:
+    """Statistical outlier removal as one program (gpd_tpu runs
+    ``remove_statistical_outliers``' jitted ``_outlier_kernel``,
+    ops/preprocess.py:101-146)."""
+    return pp.remove_statistical_outliers(cloud, mean_k, stddev_mult)
+
+
+def _prep_normals(cloud: CloudArrays, radius: float, do_estimate: bool,
+                  refine_k: int, flip: bool) -> CloudArrays:
+    """gpd_tpu's normals program (detector.py:52-66): normals estimated if
+    ``do_estimate``, the reverse pass, the refinement if ``refine_k`` > 0
+    (its loop on the device) and the flip if ``flip``."""
+    if do_estimate:
+        cloud = estimate_normals(cloud, radius)
+    cloud = reverse_normals_cloud(cloud)
+    if refine_k > 0:
+        cloud = dataclasses.replace(cloud, normals=refine_normals(
+            cloud.points, cloud.normals, cloud.mask, k=refine_k))
+    if flip:
+        cloud = dataclasses.replace(cloud, normals=-cloud.normals)
+    return cloud
 
 
 def candidates_stage(cloud: CloudArrays, sample_pos: torch.Tensor,
@@ -484,14 +529,20 @@ class CapturedGraph:
     The capture follows PyTorch's recipe: one eager run on a side stream
     first (it builds the kernels, makes every device constant and sets up
     cuBLAS and cuDNN), then the capture into ``pool``, which every graph of
-    one owner (a ``GraspDetector``, a ``SequentialImportanceSampling``)
-    shares. Sharing is safe because replays run one at a time on the
-    caller's stream, a graph is captured after the graphs whose outputs it
-    reads, while those outputs are alive, and what a request keeps is
-    cloned before the next replay; the pool then holds about one key's
-    working set, not the sum over keys. The raster launchers call
-    ``cudaFuncSetAttribute`` and the occupancy query during the capture
-    too; neither is a stream operation, and a capture accepts both.
+    one owner shares: a ``GraspDetector``'s preprocess and detect programs,
+    a ``SequentialImportanceSampling``'s keys, a trainer's steps
+    (``net.train.StepGraphs``). Sharing is safe because replays run one at
+    a time on the caller's stream, a graph is captured after the graphs
+    whose outputs it reads, while those outputs are alive, and what a
+    request keeps of a graph's outputs is copied before any other graph
+    replays: detect's selection and preprocess's cloud are cloned, each
+    preprocess compaction copies its program's outputs to the host, a
+    training step's loss and accuracy are cloned. A later capture may so
+    take memory that an earlier graph uses only inside its own replay, and
+    the pool holds about one key's working set, not the sum over keys. The
+    raster launchers call ``cudaFuncSetAttribute`` and the occupancy query
+    during the capture too; neither is a stream operation, and a capture
+    accepts both.
 
     ``generator`` (on the card, or None for a program that draws nothing)
     is registered with the graph: a replay draws what an eager run from the
@@ -610,7 +661,19 @@ class GraspDetector:
         ``capacity`` pins the padded size of every stage; ``"serve"`` takes
         each stage's ``serve_capacity`` bucket, as gpd_tpu's serving entry
         points do (the capacity picks routes in ``effective_config``);
-        None pads snugly (``_next_size``)."""
+        None pads snugly (``_next_size``).
+
+        As gpd_tpu runs it (detector.py:623-642): the programs
+        ``_prep_filter_voxel``, ``_prep_outliers`` (with
+        ``cfg.remove_outliers``) and ``_prep_normals``, each compacted on
+        the host (``compact_host``) before the next. On a card each program
+        replays a CUDA graph captured at the first request of its key (the
+        device, the input cloud's capacity and camera count, and the
+        program's static arguments) in the span ``preprocess_capture``,
+        into the detector's one pool (``CapturedGraph``); the returned
+        cloud is a copy. On the CPU the same programs run eagerly. The test
+        hook ``_force_eager`` runs them eagerly on a card too. The request
+        is one span, ``preprocess``."""
         cfg = self.cfg
         serve = capacity == "serve"
         points = np.asarray(points, np.float32).reshape(-1, 3)
@@ -626,25 +689,30 @@ class GraspDetector:
                 return c.compact_host(serve_capacity(int(c.mask.sum())))
             return c.compact_host(capacity)
 
-        cloud = CloudArrays.from_numpy(
-            points, view_points=view_points, cam_source=cam_source,
-            normals=normals, device=self.device,
-            capacity=serve_capacity(len(points)) if serve else capacity)
-        cloud = pp.filter_workspace(cloud, tuple(cfg.workspace))
-        if cfg.voxelize:
-            cloud = pp.voxelize(cloud, cfg.voxel_size)
-        cloud = compact(cloud)
-        if cfg.remove_outliers:
-            cloud = compact(pp.remove_statistical_outliers(cloud))
-        if normals is None or cfg.voxelize:
-            cloud = estimate_normals(cloud, cfg.normals_radius)
-        cloud = reverse_normals_cloud(cloud)
-        if cfg.refine_normals_k > 0:
-            cloud = dataclasses.replace(cloud, normals=refine_normals(
-                cloud.points, cloud.normals, cloud.mask, k=cfg.refine_normals_k))
-        if cfg.centered_at_origin:
-            cloud = dataclasses.replace(cloud, normals=-cloud.normals)
-        return cloud
+        def run(name, program, cloud, *static):
+            if self._force_eager:
+                return program(cloud, *static)
+            key = (name, cloud.device, cloud.capacity, cloud.num_cameras,
+                   *static)
+            return self._run(key, lambda _, c: program(c, *static), (cloud,),
+                             capture_span="preprocess_capture")
+
+        self.last_graphs = []
+        with profiling.span("preprocess"):
+            cloud = CloudArrays.from_numpy(
+                points, view_points=view_points, cam_source=cam_source,
+                normals=normals, device=self.device,
+                capacity=serve_capacity(len(points)) if serve else capacity)
+            cloud = compact(run("prep_filter_voxel", _prep_filter_voxel,
+                                cloud, tuple(cfg.workspace), cfg.voxel_size,
+                                cfg.voxelize))
+            if cfg.remove_outliers:
+                cloud = compact(run("prep_outliers", _prep_outliers, cloud,
+                                    _OUTLIER_MEAN_K, _OUTLIER_STDDEV_MULT))
+            cloud = run("prep_normals", _prep_normals, cloud,
+                        cfg.normals_radius, normals is None or cfg.voxelize,
+                        cfg.refine_normals_k, cfg.centered_at_origin)
+            return cloud if self._force_eager else clone_tree(cloud)
 
     def sample_cloud(self, cloud: CloudArrays,
                      generator: Optional[torch.Generator] = None
@@ -838,14 +906,15 @@ class GraspDetector:
         return out, counts, t_detect, time.perf_counter() - t_s0, {}
 
     def _run(self, key: tuple, program, inputs: tuple = (),
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             capture_span: str = "detect_capture"):
         """``program(generator, *inputs)``: eagerly on the CPU; on a card a
-        replay of its graph in ``self.graphs[key]``, captured first if the
-        key is new."""
+        replay of its graph in ``self.graphs[key]``, captured first (in the
+        span ``capture_span``) if the key is new."""
         if self.device.type != "cuda":
             return program(generator, *inputs)
         if key not in self.graphs:
-            with profiling.span("detect_capture"):
+            with profiling.span(capture_span):
                 if self.pool is None:
                     self.pool = torch.cuda.graph_pool_handle()
                 self.graphs[key] = CapturedGraph(self.device, program, inputs,

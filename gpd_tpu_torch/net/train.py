@@ -18,6 +18,14 @@ the same permuted batch, so gradients average over the whole batch;
 ``evaluate`` splits each batch the same way and all-reduces its sums.
 Without a process group ``data_parallel`` changes nothing, as gpd_tpu's
 with one device.
+
+gpd_tpu jits ``train_step`` (with donation) and ``eval_step``
+(train.py:48-65). Here ``StepGraphs`` is their counterpart: on a card one
+CUDA graph per (step, batch shape, net, optimizer), captured at the first
+step of its key and replayed, the batch gathered outside the graph and
+copied into its inputs; on the CPU the same bodies eagerly. ``fit`` and
+``evaluate`` step through it without a process group; with one (DDP's
+reducer hooks and all-reduces) they keep the eager step.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpd_tpu_torch import resolve_device
+from gpd_tpu_torch.detector import CapturedGraph, clone_tree
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.parallel import sharded
 
@@ -40,9 +49,12 @@ def make_optimizer(net: lenet.LeNet, lr: float = 1e-3,
                    weight_decay: float = 5e-4) -> torch.optim.Adam:
     """torch.optim.Adam(lr, weight_decay): the L2 term enters the gradient
     before the Adam moments (train_net3.py:100-103), gpd_tpu's optax
-    ``add_decayed_weights`` then ``adam`` (train.py:30-36). Not AdamW."""
+    ``add_decayed_weights`` then ``adam`` (train.py:30-36). Not AdamW.
+    Capturable (its step count on the device, so a CUDA graph can hold the
+    step) for a net on a card; the CPU's Adam takes no capturable state."""
     return torch.optim.Adam(net.parameters(), lr=lr,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay,
+                            capturable=net.conv1.weight.is_cuda)
 
 
 def loss_fn(net: torch.nn.Module, images_u8: torch.Tensor,
@@ -77,6 +89,63 @@ def eval_step(net: lenet.LeNet, images_u8: torch.Tensor,
         ce = F.cross_entropy(logits, labels.long(), reduction="none")
         hit = (logits.argmax(-1) == labels) & (weight > 0)
         return torch.sum(ce * weight), torch.sum(hit.to(torch.int32))
+
+
+class StepGraphs:
+    """``train_step`` and ``eval_step`` as gpd_tpu's jitted programs: on a
+    card each replays a CUDA graph (``detector.CapturedGraph``) captured at
+    the first step of its key, (step, input shapes and dtypes, the net's
+    and the optimizer's identity), all in one pool; on the CPU each runs
+    eagerly. A step's inputs are copied into its graph's; its outputs
+    come back as copies, so a caller may keep them across steps.
+
+    A capture's warm-up runs one real optimizer step: it is counted as the
+    key's first step, whose loss and accuracy it returns, and the graph
+    (captured after it, from the state it left) replays the later ones. So
+    N steps from given parameters are N optimizer steps, as eagerly. The
+    capture sets the gradients to None first (``train_step``'s
+    ``zero_grad``), and the graph's backward writes them into the pool,
+    PyTorch's whole-network capture recipe; Adam's state, made by the
+    warm-up, stays where the graph updates it."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graphs = {}
+        self.pool = None
+
+    def _step(self, key: tuple, program, inputs: tuple):
+        """``program(*inputs)``: eagerly on the CPU; on a card its outputs,
+        copied, from a replay of its graph, or from the capture's warm-up
+        if ``key`` (with the inputs' shapes and dtypes) is new."""
+        if self.device.type != "cuda":
+            return program(*inputs)
+        key = key + tuple((t.shape, t.dtype) for t in inputs)
+        if key in self.graphs:
+            return clone_tree(self.graphs[key].replay(*inputs))
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        runs = []
+
+        def record(_, *args):
+            runs.append(program(*args))
+            return runs[-1]
+        self.graphs[key] = CapturedGraph(self.device, record, inputs,
+                                         pool=self.pool)
+        return clone_tree(runs[0])      # the warm-up's; runs[1] the graph's
+
+    def train_step(self, net, opt, images_u8: torch.Tensor,
+                   labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step (``train_step``): (loss, accuracy)."""
+        return self._step(("train", id(net), id(opt)),
+                          lambda x, y: train_step(net, opt, x, y),
+                          (images_u8, labels))
+
+    def eval_step(self, net, images_u8: torch.Tensor, labels: torch.Tensor,
+                  weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``eval_step``: (weighted cross-entropy sum, hits)."""
+        return self._step(("eval", id(net)),
+                          lambda x, y, w: eval_step(net, x, y, w),
+                          (images_u8, labels, weight))
 
 
 class HDF5Dataset:
@@ -120,13 +189,19 @@ def _dp_batch(batch_size: int, mesh: Optional[sharded.Mesh]) -> int:
 
 
 def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256,
-             mesh: Optional[sharded.Mesh] = None) -> Tuple[float, float]:
+             mesh: Optional[sharded.Mesh] = None,
+             steps: Optional[StepGraphs] = None) -> Tuple[float, float]:
     """(mean loss, accuracy) over ``dataset.blocks()`` (network.py:66-88),
-    the tail batch padded with zeros and weighted out. With a ``mesh``
-    (every rank calling, on the same data), each rank evaluates its slice
-    of every batch and the sums are all-reduced: every rank returns the
+    the tail batch padded with zeros and weighted out. Without a ``mesh``
+    each batch is a step of ``steps`` (by default new ``StepGraphs``: on a
+    card one graph per padded batch shape). With a ``mesh`` (every rank
+    calling, on the same data), each rank evaluates its slice of every
+    batch eagerly and the sums are all-reduced: every rank returns the
     whole set's numbers."""
     device = net.conv1.weight.device
+    step = eval_step
+    if mesh is None:
+        step = (steps or StepGraphs(device)).eval_step
     batch_size = _dp_batch(batch_size, mesh)
     per = batch_size // (1 if mesh is None else mesh.size)
     mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
@@ -145,8 +220,8 @@ def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256,
                     [bi, np.zeros((pad,) + bi.shape[1:], bi.dtype)])
                 bl = np.concatenate([bl, np.zeros(pad, bl.dtype)])
                 w = np.concatenate([w, np.zeros(pad, np.float32)])
-            loss, c = eval_step(net, *(torch.from_numpy(a[mine]).to(device)
-                                       for a in (bi, bl.astype(np.int64), w)))
+            loss, c = step(net, *(torch.from_numpy(a[mine]).to(device)
+                                  for a in (bi, bl.astype(np.int64), w)))
             total += n
             sums += torch.stack([loss.double(), c.double()])
     if mesh is not None and mesh.group is not None:
@@ -173,11 +248,13 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
     100th step's (step, loss, accuracy) goes to ``log_file``; ``on_step``,
     if given, gets every step's (step, loss, accuracy), the last two as
     device scalars (with data parallelism, this rank's slice's). Returns the
-    trained parameters as gpd_tpu's dict.
+    trained parameters as gpd_tpu's dict. Steps and evaluation batches go
+    through one ``StepGraphs``: on a card CUDA graph replays.
 
     ``data_parallel`` with an initialized process group: every rank calls
     ``fit`` on the same data, the device is the rank's (``device`` must name
-    its type), and only rank 0 writes checkpoints and the log."""
+    its type), steps run eagerly through DDP, and only rank 0 writes
+    checkpoints and the log."""
     mesh = _dp_mesh(data_parallel)
     device = resolve_device(device)
     if mesh is not None:
@@ -193,6 +270,8 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
             net, device_ids=[device.index] if device.type == "cuda" else None,
             process_group=mesh.group)
     opt = make_optimizer(net, lr, weight_decay)
+    steps = StepGraphs(device)
+    step_fn = steps.train_step if mesh is None else train_step
     batch_size = _dp_batch(batch_size, mesh)
     per = batch_size if mesh is None else batch_size // mesh.size
     mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
@@ -217,7 +296,7 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
             labels = torch.from_numpy(labels.astype(np.int64)).to(device)
             for i in range(0, len(perm) - batch_size + 1, batch_size):
                 sel = perm[i:i + batch_size][mine]
-                loss, acc = train_step(model, opt, images[sel], labels[sel])
+                loss, acc = step_fn(model, opt, images[sel], labels[sel])
                 step += 1
                 if on_step is not None:
                     on_step(step, loss, acc)
@@ -229,7 +308,7 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
                     stats.append((step, *both.tolist()))
             block_i += 1
             if test_dataset is not None and block_i % eval_every_blocks == 0:
-                tl, ta = evaluate(net, test_dataset, mesh=mesh)
+                tl, ta = evaluate(net, test_dataset, mesh=mesh, steps=steps)
                 print(f"epoch {epoch} block {block_i}: test loss {tl:.4f} "
                       f"acc {ta:.4f}")
                 save(f"lenet_e{epoch}_b{block_i}.npz")

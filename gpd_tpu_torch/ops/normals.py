@@ -93,12 +93,18 @@ def refine_normals(points, normals, mask, k: int = 10,
     per iteration every normal becomes the normalized uniform average of its
     k nearest neighbors' previous normals, for up to ``max_iterations`` or
     until the RMS change drops below ``convergence_rms``. Neighbor sets are
-    fixed across iterations and include the point itself. The convergence
-    test reads one number back to the host per iteration."""
+    fixed across iterations and include the point itself.
+
+    gpd_tpu's ``lax.while_loop`` (gpd_tpu/ops/normals.py:114-151) with its
+    trip count on the device: all ``max_iterations`` run, and a flag on the
+    device freezes ``cur`` from the iteration after the one whose RMS change
+    fell below ``convergence_rms``. That equals stopping there, and nothing
+    is read back to the host, so a CUDA graph can hold the loop."""
     idx, valid = radius_neighbors(points, mask, points, mask, radius=1e5, k=k)
     vmaskf = valid[..., None].to(normals.dtype)
     n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
     cur = normals
+    done = torch.zeros((), dtype=torch.bool, device=normals.device)
     for _ in range(max_iterations):
         avg = torch.sum(cur[idx] * vmaskf, dim=1)
         nrm = torch.sqrt(torch.sum(avg * avg, dim=1, keepdim=True))
@@ -106,7 +112,6 @@ def refine_normals(points, normals, mask, k: int = 10,
         new = torch.where(mask[:, None], new, cur)
         diff = new - cur
         rms = torch.sqrt(torch.sum(diff * diff) / n_pts)
-        cur = new
-        if float(rms) < convergence_rms:
-            break
+        cur = torch.where(done, cur, new)
+        done = done | (rms < convergence_rms)
     return cur

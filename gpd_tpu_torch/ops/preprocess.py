@@ -10,6 +10,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from gpd_tpu_torch import constant
 from gpd_tpu_torch.core.types import PAD_COORD, CloudArrays
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops.neighbors import _dist2
@@ -49,7 +50,10 @@ def _voxel_kernel(points, normals, cam_source, mask, cell_size: float):
     # Min over valid points (the reference's pcl::getMinMax3D,
     # cloud.cpp:288-291).
     min_pt = torch.amin(torch.where(mask[:, None], points, torch.inf), dim=0)
-    cell = torch.tensor(cell_size, dtype=torch.float32, device=points.device)
+    # A device constant, not torch.tensor(cell_size, device=...): a copy
+    # from the host waits for the card, which a CUDA graph capture forbids.
+    # A Python float would divide by its reciprocal on the card instead.
+    cell = constant(cell_size, points.device)
     bins = torch.floor((points - min_pt[None, :]) / cell).to(torch.int32)
     # Invalid points go to a sentinel cell that sorts last.
     bins = torch.where(mask[:, None], bins, 1 << 24)
@@ -63,8 +67,10 @@ def _voxel_kernel(points, normals, cam_source, mask, cell_size: float):
         order = order[torch.argsort(bins[order, axis], stable=True)]
     sb = bins[order]
     svalid = mask[order]
-    new_cell = torch.any(sb != torch.roll(sb, 1, dims=0), dim=1)
-    new_cell[0] = True
+    # Row 0 starts a cell; a mask, not an assignment of a host scalar,
+    # which would be a copy from the host.
+    new_cell = torch.any(sb != torch.roll(sb, 1, dims=0), dim=1) | (
+        torch.arange(n, device=points.device) == 0)
     is_rep = new_cell & svalid
 
     seg = torch.cumsum(new_cell, dim=0) - 1        # segment id in sorted order
