@@ -104,7 +104,10 @@ Phases; any failure exits non-zero and prints no result line:
      raster_sums launches its capture recorded),
      detect_grasps --staged and generate_candidates (with a CSV) CLIs
      once each; the api's detect_grasps_in_file and
-     calc_grasp_descriptors once each at 15 channels; and each PCD scene,
+     calc_grasp_descriptors once each at 15 channels, then
+     detect_grasps_in_cloud with equal configs, on a new detector (the
+     process's detectors emptied first) and on the kept one in turns (a
+     call on the kept detector must capture nothing); and each PCD scene,
      then a 640 x 480 sensor frame (307200 points), parsed by the native
      and the NumPy route (identical, native in use, each route timed);
  11. profiler: one 15-channel detect request and one CEM request by each
@@ -114,8 +117,10 @@ Phases; any failure exits non-zero and prints no result line:
      route's traced kernel time over the median of three untraced requests
      of it (the profiler makes a graph's launch call slow); CEM's
      loop first, the fused one a replay of a captured graph that must run
-     the captured launches (after phase 15, one
-     generate_view too) under profiling.maybe_trace:
+     the captured launches (after phase 15, one generate_view by each
+     route at 15 and at 3 channels, whose graph replays must run the
+     raster_blocks, at 3 channels the raster_sums, launches their captures
+     recorded) under profiling.maybe_trace:
      the device's busy share of each window, its kernel launches and host
      launch calls, each span's host time and the device time of the kernels
      launched inside it, the window's longest idle gaps, and the device
@@ -128,11 +133,29 @@ Phases; any failure exits non-zero and prints no result line:
  14. data generation: DataGenerator.generate_view at the default
      DetectorConfig and DataGenConfig on 12 (object, view) units (4 objects
      of the synthetic zoo, 3 render_view views each, the whole object as
-     mesh cloud): per view attempts, candidates, positives, instances, ms
-     and raster_blocks launches; peak memory; the first view once more from
-     the same seed (labels equal, images within the gate); one attempt's
-     candidates relabeled on the card and on the CPU (>= 99% agreement);
-     one attempt's steps timed apart;
+     mesh cloud), each attempt gpd_tpu's programs (A: samples and
+     candidates, one read of A's counts, B: images and scores over the
+     live chunks, R: the relabeling), each a CUDA graph captured at the
+     first request of its key: a warm pass that captures (each new key's
+     capture ms and pool bytes, the pass's ms), then passes by the graph
+     route and the eager attempt (_force_eager) in turns (graph, eager,
+     eager, graph), each unit from its view_generator: ms/view and
+     instances/s per route; per view attempts, candidates, positives,
+     instances, ms by route and raster_blocks (recorded by the captures of
+     the keys the view replayed, not traced; the eager route's wrapper
+     calls); peak memory. Fails unless no later pass captures, no graph
+     pass calls a kernel wrapper, every graph pass finds the eager route's
+     labels on every unit and its images within the gate (under 0.5% of
+     pixels more than one step apart). Then the same on the same detector
+     for 4 views of 2 table scenes (render_view_occluded, the whole scene
+     as mesh cloud), whose views fall in larger capacity buckets: each
+     view's capacity and B keys, the detector's keys by part, its pool
+     bytes and its one images buffer; fails unless every B key with
+     images writes into that buffer and adds less than its bytes to the
+     pool. Then one unit by a 3-channel detector at the packaged
+     3-channel weights the same way (its B runs raster_sums in a graph);
+     one eager attempt's candidates relabeled on the card and on the CPU
+     (>= 99% agreement); one eager attempt's steps timed apart;
  15. training: net.train.fit on the generated instances of views 0-1 from
      memory (batch 64, lr 1e-3, wd 5e-4, two epochs; each step a replay of
      one CUDA graph, evaluation one per batch shape): ms per step, the
@@ -150,8 +173,14 @@ Phases; any failure exits non-zero and prints no result line:
  17. scores: in each reference check, the CPU route's images scored on the
      card and on the CPU at bf16 and f32: float32 logits, and top-k overlap
      of the card's bf16 scores with the CPU's >= 95%;
- 18. the kernels line (with each kernel's launches per path, data
-     generation's per view too), the card line, and the status line last.
+ 18. net swap: the detector's net replaced by three nets made from the
+     same parameters, each freed by the next, a scene-0 request after each,
+     then back to the first net and garbage collected: the request must
+     select as a fresh detector does (scores and positions within 1e-5),
+     and detect's graphs hold only the current net;
+ 19. the kernels line (with each kernel's launches per path, data
+     generation's per view by each route too), the card line, and the
+     status line last.
 
 Before each path of phases 4-10 and 14 every kernel's launch count is set
 to 0; it is read just after the path's requests. A wrapper counts where it
@@ -160,10 +189,12 @@ replay calls no wrapper, so the kernels a replay runs are counted from a
 profiler trace of it: the device kernels launched inside its
 ``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9 run
 after phase
-6, phases 13-15 before phase 10; phases 12 and 17 run last, 16 with them.
+6, phases 13-15 before phase 10; phases 12, 17 and 18 run last, 16 with
+them.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -192,6 +223,8 @@ CAMERA_SEED = 1000
 DATAGEN_SEED = 7
 DATAGEN_OBJECTS = 4
 DATAGEN_VIEWS = 3
+DATAGEN_SCENES = 2
+DATAGEN_SCENE_VIEWS = 2
 # The seed of the sensor-frame PCD that times the two ascii parse routes at
 # the size of one depth frame.
 SENSOR_SEED = 11
@@ -1170,6 +1203,79 @@ def api_15ch(api, DetectorConfig, pcd, path, cam):
         fail(f"calc_grasp_descriptors gave images {images.shape}")
 
 
+def api_cache_check(torch, api, DetectorConfig, syn):
+    """api.detect_grasps_in_cloud on scene 0 with equal configs (a new
+    DetectorConfig() each call): with the process's detectors emptied
+    before the call (a new detector per call, as the API made before it
+    kept one per config) and on the kept detector, in turns (new, kept,
+    kept, new). Fails unless a call on the kept detector captures no graph,
+    and every call returns the same grasp count."""
+    p, cs, vp = scene(syn, 0)
+    res = {"new": [], "kept": []}
+    for route in ("new", "kept", "kept", "new"):
+        if route == "new":
+            api._DETECTORS.clear()
+            gc.collect()
+        n = sum(len(d.graphs) for *_, d in api._DETECTORS.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grasps = api.detect_grasps_in_cloud(DetectorConfig(), p,
+                                            view_points=vp, cam_source=cs,
+                                            seed=0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        captured = sum(len(d.graphs) for *_, d in api._DETECTORS.values()) - n
+        res[route].append((round(ms, 2), len(grasps), captured))
+    print(f"api detector cache (detect_grasps_in_cloud, scene 0, equal "
+          f"configs; ms, grasps, graphs captured): a new detector per call "
+          f"{res['new']}, the kept detector {res['kept']}; the first two "
+          f"calls {res['new'][0][0]} and {res['kept'][0][0]} ms")
+    if any(c for _, _, c in res["kept"]):
+        fail("an API call with an equal config captured graphs")
+    if len({n for runs in res.values() for _, n, _ in runs}) != 1 or \
+            not res["new"][0][1]:
+        fail("API calls with equal configs returned other grasp counts")
+
+
+def net_swap_check(torch, lenet, syn, det, GraspDetector, DetectorConfig):
+    """det.net swapped to three nets made from the same numpy parameters,
+    each freed by the next swap, a request on scene 0 (seed 0) after each,
+    then back to the first net and garbage collected: the request's
+    selection must equal a fresh detector's on the same cloud and seed
+    (valid flags exact, scores and positions within 1e-5), and the graphs
+    must hold only the current net."""
+    p, cs, vp = scene(syn, 0)
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    first = det.net
+    params = lenet.params_to_numpy(first)
+    dropped = []
+    for swap in range(4):
+        n = len(det.graphs)
+        det.net = lenet.params_from_numpy(params, "cuda") if swap < 3 \
+            else first
+        dropped.append(n - len(det.graphs))
+        if swap == 3:
+            gc.collect()
+        out = det.detect(cloud, generator=seeded(torch, 0),
+                         verbose=False).to_host()
+    held = {k[4] for k in det.graphs if k[0] in ("candidates", "score",
+                                                 "select")}
+    fresh = GraspDetector(DetectorConfig(), device="cuda").detect(
+        cloud, generator=seeded(torch, 0), verbose=False).to_host()
+    v = out.valid
+    gap = (float(np.abs(out.score[v] - fresh.score[fresh.valid]).max())
+           if np.array_equal(v, fresh.valid) else np.inf)
+    print(f"net swap (scene 0, seed 0): graphs dropped at each swap "
+          f"{dropped}; nets held by detect's graphs {len(held)}; "
+          f"{int(v.sum())} selected, score gap to a fresh detector {gap:.2e}")
+    if held != {id(first)}:
+        fail("detect's graphs hold a net other than the current one")
+    if not v.any() or gap > 1e-5 or np.abs(
+            out.position[v] - fresh.position[fresh.valid]).max() > 1e-5:
+        fail("after the net swaps the detector leaves a fresh detector's "
+             "selection")
+
+
 def sensor_frame_pcd(pcd, tmp, seed=SENSOR_SEED):
     """An ascii PCD at the size of one 640 x 480 depth frame (307200
     points): a tilted plane 0.5-1 m away with 1 mm noise, back-projected
@@ -1298,6 +1404,21 @@ def read_trace(events, span_names, label, n_top):
         print("  host launch calls (ms at ms into the window, host ms): " +
               ", ".join(f"{e['name']} at {(e['ts'] - w0) / 1e3:.2f} "
                         f"{e['dur'] / 1e3:.3f}" for e in launches))
+    g, at = max(gaps)
+    if g > 5e3:
+        # What ran across the longest idle gap: host operators and runtime
+        # calls, and the copy engine's transfers.
+        a, b = w0 + at, w0 + at + g
+        over = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in (
+                    "cpu_op", "cuda_runtime", "gpu_memcpy", "gpu_memset"):
+                o = min(e["ts"] + e["dur"], b) - max(e["ts"], a)
+                if o > 0:
+                    over[e["name"]] = over.get(e["name"], 0.0) + o
+        print(f"  across the longest idle gap ({g / 1e3:.2f} ms), ms: " +
+              ", ".join(f"{n[:40]} {o / 1e3:.2f}" for n, o in sorted(
+                  over.items(), key=lambda kv: -kv[1])[:6]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
     for kname, (t, n, ops) in top:
         print(f"  {t / 1e3:8.3f} ms {n:5d} calls  from "
@@ -1434,71 +1555,249 @@ def datagen_units(torch, syn, det, CloudArrays):
     return units
 
 
-def datagen_path(torch, img, datagen, units, det):
-    """DataGenerator.generate_view on every unit at the default
-    DataGenConfig, each from its own view_generator: a warm-up on unit 0,
-    then the units with the kernel counts reset. Unit 0 of the run must
-    repeat the warm-up's labels and instance count (images may differ by
-    the kernel's float atomics: the share of differing bytes is printed).
-    Returns (per-unit (images, labels), launches, per-unit raster_blocks
-    launches)."""
+def datagen_span(torch, img, datagen, syn, det, CloudArrays):
+    """Data generation over views in several capacity buckets: DATAGEN_SCENES
+    make_scene table scenes (3 objects; 3000 and 9000 table points), each
+    whole scene surface as mesh cloud, DATAGEN_SCENE_VIEWS
+    render_view_occluded views each from view_cameras, preprocessed into
+    the serving buckets, on the detector of the 15-channel phase (its keys
+    of the zoo views kept), by datagen_turns. Prints each view's capacity
+    and live pair, the keys by part, the pool's bytes, and the one images
+    buffer's. Fails unless every B key with images writes into that
+    buffer and adds less than its bytes to the pool."""
+    rng = np.random.default_rng(DATAGEN_SEED + 1)
+    units = []
+    for s, table in enumerate((3000, 9000)[:DATAGEN_SCENES]):
+        pts, nrm = syn.make_scene(rng, n_objects=3, table_points=table)
+        mesh = CloudArrays.from_numpy(pts, normals=nrm, device="cuda")
+        for v, cam in enumerate(syn.view_cameras(rng, DATAGEN_SCENE_VIEWS)):
+            view = det.preprocess_cloud(
+                syn.render_view_occluded(rng, pts, nrm, cam),
+                view_points=cam[None], capacity="serve")
+            units.append((f"scene_{s:03d}", v, view, mesh))
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+    reset_counts(img)
+    passes = datagen_turns(torch, img, datagen, gen, units,
+                           "data generation, 15 channels, scene views",
+                           "raster_blocks")
+    for u, (name, v, view, _) in enumerate(units):
+        g = passes["graph"][0][u]
+        print(f"generate_view {name} view {v}: {int(view.mask.sum())} points "
+              f"(capacity {view.capacity}), attempts "
+              f"{g['counts']['attempts']}, B keys "
+              f"{[key_label(k) for k in g['keys'] if k[0] == 'score']}, "
+              f"instances kept {len(g['labels'])}")
+    parts = {}
+    for k in det.graphs:
+        parts[k[0]] = parts.get(k[0], 0) + 1
+    bs = [e for k, e in det.graphs.items()
+          if k[0] == "score" and k[-1] == "images"]
+    bufs = list(det._images.values())
+    nbytes = sum(b.nbytes for b in bufs)
+    print(f"data generation over capacity buckets "
+          f"{sorted({u[2].capacity for u in units})} (scenes) and the zoo "
+          f"views': the detector's keys by part {parts}, of them {len(bs)} "
+          f"B keys with images; pool "
+          f"{sum(e.pool_bytes for e in det.graphs.values())} bytes over {len(det.graphs)} graphs (B keys with images: "
+          f"{sum(e.pool_bytes for e in bs)}); images buffers {len(bufs)}, "
+          f"{nbytes} bytes")
+    if len(bufs) != 1 or any(e.out[1].data_ptr() != bufs[0].data_ptr()
+                             or e.pool_bytes >= nbytes for e in bs):
+        fail("a data-generation B key keeps its images in the pool")
 
-    def run(unit, rng):
-        name, v, view, mesh = unit
-        return gen.generate_view(view, mesh, datagen.view_generator(
-            DATAGEN_SEED, name, v, "cuda"), rng)
-    t0 = time.perf_counter()
-    warm_images, warm_labels = run(units[0], np.random.default_rng(
-        DATAGEN_SEED))
-    print(f"generate_view warm-up: {time.perf_counter() - t0:.3f} s")
+
+def key_label(key):
+    """A short name of a graph key of the data-generation programs: A by
+    the view's capacity, B by its live (chunk, block) ends, R by the hand
+    and mesh capacities."""
+    if key[0] == "candidates":
+        return f"A cap {key[2]}"
+    if key[0] == "score":
+        return f"B cap {key[2]} live ({key[8]}, {key[9]})"
+    if key[0] == "relabel":
+        return f"R hands {key[2]} mesh {key[3]}"
+    return key[0]
+
+
+def datagen_pass(torch, img, datagen, gen, units, eager):
+    """generate_view on every unit by one route, the graph route (the
+    default) or the eager attempt (``eager``: _force_eager), each unit from
+    its view_generator and the pass's balancing rng from DATAGEN_SEED. Per
+    unit: images, labels, host ms to the kept rows on the host,
+    last_counts, kernel wrapper calls and the graph keys it replayed."""
+    det = gen.detector
     rng = np.random.default_rng(DATAGEN_SEED)
+    out = []
+    det._force_eager = eager
+    try:
+        for name, v, view, mesh in units:
+            before = sum(counts(img).values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images, labels = gen.generate_view(
+                view, mesh, datagen.view_generator(DATAGEN_SEED, name, v,
+                                                   "cuda"), rng)
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append(dict(images=images, labels=labels, ms=ms,
+                            counts=dict(gen.last_counts),
+                            calls=sum(counts(img).values()) - before,
+                            keys=list(det.last_graphs)))
+    finally:
+        det._force_eager = False
+    return out
+
+
+def replayed_launches(det, keys, family):
+    """The ``family`` kernels that replays of ``keys`` ran: each replay
+    runs the launches its capture recorded."""
+    return sum(captured_launches(det.graphs[k])[family] for k in keys)
+
+
+def datagen_turns(torch, img, datagen, gen, units, label, family):
+    """The data-generation phase of ``units`` by route: a warm pass by the
+    graph route (each new key's capture ms and pool bytes, the pass's ms),
+    then the graph route and the eager attempt in turns, a pass each
+    (graph, eager, eager, graph). Fails unless a later pass captures
+    nothing, a graph pass calls no kernel wrapper, every graph pass finds
+    the eager route's labels and counts on every unit and its images within
+    the repo's gate (under 0.5% of pixels more than one step apart), and
+    the graph replays of every view ran ``family`` kernels. Returns the
+    passes by route."""
+    det = gen.detector
+    n0 = len(det.graphs)
+    t0 = time.perf_counter()
+    datagen_pass(torch, img, datagen, gen, units, eager=False)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    new = list(det.graphs)[n0:]
+    n1 = len(det.graphs)
+    print(f"{label}: warm pass (graph route) {warm_ms:.2f} ms over "
+          f"{len(units)} views, {len(new)} keys captured (warm-up + capture "
+          f"ms, pool bytes added): " + ", ".join(
+              f"{key_label(k)} {det.graphs[k].capture_s * 1e3:.2f} "
+              f"(+{det.graphs[k].pool_bytes})" for k in new) +
+          f"; the detector's pool "
+          f"{sum(e.pool_bytes for e in det.graphs.values())} bytes over "
+          f"{len(det.graphs)} graphs")
+    passes = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        passes[route].append(datagen_pass(torch, img, datagen, gen, units,
+                                          eager=route == "eager"))
+    later = len(det.graphs) - n1
+    eager = passes["eager"][0]
+    gaps, same_graph = [], []
+    for run in passes["graph"]:
+        for u, (g, e) in enumerate(zip(run, eager)):
+            if g["counts"] != e["counts"] or not np.array_equal(
+                    g["labels"], e["labels"]):
+                fail(f"{label}: unit {u}'s graph route found {g['counts']} "
+                     f"and other labels than the eager route's "
+                     f"{e['counts']}")
+            if g["calls"]:
+                fail(f"{label}: a graph pass called a kernel wrapper "
+                     f"{g['calls']} times: it ran eagerly")
+            if replayed_launches(det, g["keys"], family) < 1:
+                fail(f"{label}: unit {u}'s graph replays ran no {family}")
+            diff = np.abs(g["images"].astype(np.int32)
+                          - e["images"].astype(np.int32))
+            gaps.append(float((diff > 1).mean()))
+            if gaps[-1] >= 5e-3:
+                fail(f"{label}: unit {u}'s graph images leave the image "
+                     f"gate ({gaps[-1]:.2e} of pixels)")
+    for u, (a, b) in enumerate(zip(*passes["graph"])):
+        same_graph.append(float((a["images"] != b["images"]).mean()))
+    if later:
+        fail(f"{label}: the passes after the warm pass captured {later} "
+             f"graphs")
+    rates = {}
+    for route, runs in passes.items():
+        rates[route] = [(sum(x["ms"] for x in run) / len(run),
+                         sum(len(x["labels"]) for x in run)
+                         / sum(x["ms"] for x in run) * 1e3) for run in runs]
+    print(f"{label}: ms/view in turns graph "
+          f"{[round(r[0], 2) for r in rates['graph']]}, eager "
+          f"{[round(r[0], 2) for r in rates['eager']]}; instances/s graph "
+          f"{[round(r[1], 1) for r in rates['graph']]}, eager "
+          f"{[round(r[1], 1) for r in rates['eager']]}; keys captured after "
+          f"the warm pass {later}; labels equal on every unit; graph vs "
+          f"eager images, share of pixels more than one step apart: max "
+          f"{max(gaps):.2e}; graph vs graph, share of image bytes that "
+          f"differ: max {max(same_graph):.2e}")
+    return passes
+
+
+def datagen_path(torch, img, datagen, units, det):
+    """Data generation at the default DataGenConfig on every unit
+    (datagen_turns), its per-view lines (attempts, candidates, positives,
+    instances kept, ms by route in turns, the raster_blocks launches that
+    the captures of the keys its replays ran recorded, and the eager
+    route's wrapper calls), peak memory. Returns
+    (per-unit (images, labels) of the first graph pass, the phase's
+    wrapper calls, per-view raster_blocks of the eager and the graph
+    route)."""
+    gen = datagen.DataGenerator(det, datagen.DataGenConfig())
     torch.cuda.reset_peak_memory_stats()
     reset_counts(img)
-    out, per_view, total_s = [], [], 0.0
-    for unit in units:
-        before = img.raster_blocks.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        images, labels = run(unit, rng)
-        dt = time.perf_counter() - t0
-        total_s += dt
-        c = gen.last_counts
-        per_view.append(img.raster_blocks.launches - before)
+    passes = datagen_turns(torch, img, datagen, gen, units,
+                           "data generation, 15 channels", "raster_blocks")
+    launches = counts(img)
+    graph, eager = passes["graph"][0], passes["eager"][0]
+    per_view = [e["calls"] for e in eager]
+    per_view_graph = [replayed_launches(det, g["keys"], "raster_blocks")
+                      for g in graph]
+    for u, unit in enumerate(units):
+        c, n = graph[u]["counts"], len(graph[u]["labels"])
         print(f"generate_view {unit[0]} view {unit[1]}: "
               f"{int(unit[2].mask.sum())} points, attempts {c['attempts']}, "
               f"candidates {c['candidates']}, positives {c['positives']}, "
-              f"instances kept {len(labels)} ({int(labels.sum())} positive), "
-              f"{dt * 1e3:.2f} ms, raster_blocks launches {per_view[-1]}")
-        if images.shape != (len(labels), 60, 60, 15):
-            fail(f"generate_view gave images {images.shape}")
-        out.append((images, labels))
-    launches = counts(img)
-    n = sum(len(lb) for _, lb in out)
-    print(f"data generation: {len(units)} views, {n} instances in "
-          f"{total_s:.3f} s ({n / total_s:.1f} instances/s, "
-          f"{total_s / len(units) * 1e3:.2f} ms/view); launches {launches}; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB")
-    if launches["raster_blocks"] < len(units):
-        fail("data generation did not launch raster_blocks on every view")
-    images, labels = out[0]
-    if not np.array_equal(labels, warm_labels):
-        fail("generate_view did not repeat its labels from the same seed")
-    differ = float((images != warm_images).mean())
-    print(f"generate_view repeated from the same seed: labels equal, "
-          f"{len(labels)} instances both times, share of image bytes that "
-          f"differ {differ:.2e}")
-    diff = np.abs(images.astype(np.int32) - warm_images.astype(np.int32))
-    if (diff > 1).mean() >= 5e-3:
-        fail("repeated generate_view images leave the image gate")
-    return out, launches, per_view
+              f"instances kept {n} ({int(graph[u]['labels'].sum())} "
+              f"positive), ms in turns graph "
+              f"{[round(r[u]['ms'], 2) for r in passes['graph']]}, eager "
+              f"{[round(r[u]['ms'], 2) for r in passes['eager']]}; "
+              f"raster_blocks recorded by the captures of the keys its "
+              f"graph replays ran {per_view_graph[u]} (not traced), eager "
+              f"wrapper calls {per_view[u]}")
+        if graph[u]["images"].shape != (n, 60, 60, 15):
+            fail(f"generate_view gave images {graph[u]['images'].shape}")
+    print(f"data generation: {len(units)} views, "
+          f"{sum(len(g['labels']) for g in graph)} instances a pass; "
+          f"wrapper calls of the phase {launches} (the warm pass's warm-ups "
+          f"and captures, two eager passes); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return ([(g["images"], g["labels"]) for g in graph], launches, per_view,
+            per_view_graph)
 
 
-def relabel_check(torch, detector, cand, datagen, det, unit):
-    """One attempt's candidates of ``unit`` on the card, relabeled by
-    reevaluate_hypotheses on the card and on the CPU (the plain route):
-    label agreement over the valid hands, at least 99%."""
+def datagen_3ch(torch, img, datagen, GraspDetector, DetectorConfig,
+                ImageGeometry, unit):
+    """One unit by a 3-channel detector at the packaged 3-channel weights,
+    by datagen_turns: its B runs raster_sums inside a graph. Returns the
+    phase's wrapper calls, the raster_sums launches that the captures of
+    the keys the view replayed recorded, and the detector (phase 11 traces
+    one of its graph views)."""
+    det3 = GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=3)), device="cuda")
+    gen = datagen.DataGenerator(det3, datagen.DataGenConfig())
+    reset_counts(img)
+    passes = datagen_turns(torch, img, datagen, gen, [unit],
+                           f"data generation, 3 channels ({unit[0]} view "
+                           f"{unit[1]})", "raster_sums")
+    g = passes["graph"][0][0]
+    replayed = replayed_launches(det3, g["keys"], "raster_sums")
+    print(f"data generation, 3 channels: {len(g['labels'])} instances, "
+          f"images {g['images'].shape}; raster_sums recorded by the "
+          f"captures of the keys the graph view replayed {replayed} (not "
+          f"traced here; phase 11 traces it), eager wrapper calls "
+          f"{passes['eager'][0][0]['calls']}")
+    if g["images"].shape[1:] != (60, 60, 3):
+        fail(f"3-channel generate_view gave images {g['images'].shape}")
+    return counts(img), replayed, det3
+
+
+def relabel_check_eager(torch, detector, cand, datagen, det, unit):
+    """One eager attempt's candidates of ``unit`` on the card (detect_core),
+    relabeled by reevaluate_hypotheses eagerly on the card and on the CPU
+    (the plain route): label agreement over the valid hands, at least
+    99%."""
     name, v, view, mesh = unit
     cfg = det.effective_config(view)
     g = datagen.view_generator(DATAGEN_SEED, name, v, "cuda")
@@ -1511,20 +1810,20 @@ def relabel_check(torch, detector, cand, datagen, det, unit):
                                         moved(torch, grasps, "cpu"), cfg)
     valid = grasps.valid.cpu()
     agree = float((card.cpu() == cpu)[valid].float().mean())
-    print(f"relabel check ({name} view {v}): {int(valid.sum())} hands, "
-          f"{int(card.sum())} positive on the card, {int(cpu.sum())} on the "
-          f"CPU, label agreement {agree:.2%}")
+    print(f"relabel check, eager ({name} view {v}): {int(valid.sum())} "
+          f"hands, {int(card.sum())} positive on the card, {int(cpu.sum())} "
+          f"on the CPU, label agreement {agree:.2%}")
     if agree < 0.99:
         fail(f"card and CPU relabeling agree on {agree:.2%} of the hands")
 
 
-def datagen_breakdown(torch, detector, cand, datagen, det, unit):
-    """One attempt of generate_view on ``unit``, its steps timed apart on
-    the host clock with a device wait after each: candidates and images
-    (sample_cloud + detect_core), relabeling, the valid labels to the host
-    and the balancing, and the kept rows' images to the host (what
-    generate_view moves; the whole valid prefix, which it does not, is
-    timed last for comparison)."""
+def datagen_breakdown_eager(torch, detector, cand, datagen, det, unit):
+    """One eager attempt of generate_view on ``unit``, its steps timed
+    apart on the host clock with a device wait after each: candidates and
+    images (sample_cloud + detect_core), relabeling, the valid labels to
+    the host and the balancing, and the kept rows' images to the host
+    (what generate_view moves; the whole valid prefix, which it does not,
+    is timed last for comparison)."""
     name, v, view, mesh = unit
     cfg = det.effective_config(view)
     g = datagen.view_generator(DATAGEN_SEED, name, v, "cuda")
@@ -1548,28 +1847,62 @@ def datagen_breakdown(torch, detector, cand, datagen, det, unit):
     prefix = images[:n].cpu().numpy()
     t.append(time.perf_counter())
     ms = np.diff(t) * 1e3
-    print(f"generate_view breakdown ({name} view {v}, one attempt, ms): "
-          f"candidates + images {ms[0]:.2f} ({n} valid of {grasps.capacity} "
-          f"hands), relabel {ms[1]:.2f} ({-(-grasps.capacity // 512)} "
-          f"blocks of 512), labels to host + balance {ms[2]:.2f}, kept rows "
-          f"to host {ms[3]:.2f} ({len(kept)} rows, {kept.nbytes / 1e6:.1f} "
-          f"MB); the whole valid prefix would take {ms[4]:.2f} "
-          f"({prefix.nbytes / 1e6:.1f} MB)")
+    print(f"generate_view breakdown, eager steps ({name} view {v}, one "
+          f"attempt, ms): candidates + images {ms[0]:.2f} ({n} valid of "
+          f"{grasps.capacity} hands), relabel {ms[1]:.2f} "
+          f"({-(-grasps.capacity // 512)} blocks of 512), labels to host + "
+          f"balance {ms[2]:.2f}, kept rows to host {ms[3]:.2f} ({len(kept)} "
+          f"rows, {kept.nbytes / 1e6:.1f} MB); the whole valid prefix would "
+          f"take {ms[4]:.2f} ({prefix.nbytes / 1e6:.1f} MB)")
 
 
-def profile_offline(torch, profiling, datagen, det, unit, tmp):
-    """One generate_view under profiling.maybe_trace, in a span read by
-    read_trace."""
+def profile_offline(torch, profiling, datagen, det, unit, tmp,
+                    family="raster_blocks", label="15 channels"):
+    """One generate_view of seen keys by each route under
+    profiling.maybe_trace, in a span read by read_trace: the graph route
+    (its replays must run the ``family`` kernels their captures recorded,
+    and capture nothing) and the eager attempt, side by side. Returns the
+    ``family`` kernels the traced graph view ran."""
     name, v, view, mesh = unit
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+    tmp = os.path.join(tmp, f"datagen_{family}")
 
     def one_view():
         with profiling.span("generate_view"):
             gen.generate_view(view, mesh, datagen.view_generator(
                 DATAGEN_SEED, name, v, "cuda"), np.random.default_rng(0))
             torch.cuda.synchronize()
-    read_trace(traced(profiling, one_view, os.path.join(tmp, "datagen")),
-               ("generate_view",), "generate_view (one view)", 5)
+    n = len(det.graphs)
+    events = traced(profiling, one_view, os.path.join(tmp, "graph"))
+    ran = span_launches(events, "generate_view")[family]
+    want = replayed_launches(det, det.last_graphs, family)
+    graph = read_trace(events, ("generate_view",),
+                       f"generate_view (one view, {label}), graph route", 5)
+    det._force_eager = True
+    try:
+        eager = read_trace(traced(profiling, one_view,
+                                  os.path.join(tmp, "eager")),
+                           ("generate_view",),
+                           f"generate_view (one view, {label}), eager route",
+                           5)
+    finally:
+        det._force_eager = False
+    print(f"generate_view traced by route ({label}, {name} view {v}): "
+          f"kernel time "
+          f"graph {graph['kernel_ms']:.2f} vs eager {eager['kernel_ms']:.2f}"
+          f" ms ({graph['kernel_ms'] / eager['kernel_ms'] - 1:+.2%}), busy "
+          f"{graph['busy']:.1%} vs {eager['busy']:.1%}, host launch calls "
+          f"{graph['calls']} vs {eager['calls']}, window "
+          f"{graph['window_ms']:.2f} vs {eager['window_ms']:.2f} ms; "
+          f"{family} kernels run by the graph view {ran} (its replays' "
+          f"captures recorded {want})")
+    if len(det.graphs) != n:
+        fail(f"a traced generate_view ({label}) of seen keys captured a "
+             f"graph")
+    if ran != want or ran < 1:
+        fail(f"a traced graph generate_view ({label}) ran {ran} {family}, "
+             f"its captures recorded {want}")
+    return ran
 
 
 def training_routes(torch, profiling, train, lenet, params, data, tmp):
@@ -2370,11 +2703,19 @@ def main():
     classify_times(torch, lenet, det.net)
 
     units = datagen_units(torch, syn, det, CloudArrays)
-    data, launches_gen, per_view = datagen_path(torch, img, datagen, units,
-                                                det)
-    by_path[f"generate_view, 15 channels ({len(units)} views)"] = launches_gen
-    relabel_check(torch, detector, cand, datagen, det, units[0])
-    datagen_breakdown(torch, detector, cand, datagen, det, units[1])
+    data, launches_gen, per_view, per_view_graph = datagen_path(
+        torch, img, datagen, units, det)
+    by_path[f"generate_view, 15 channels ({len(units)} views; wrapper "
+            f"calls: the warm pass's warm-ups and captures, two eager "
+            f"passes)"] = launches_gen
+    datagen_span(torch, img, datagen, syn, det, CloudArrays)
+    launches_gen3, replayed_gen3, det_gen3 = datagen_3ch(
+        torch, img, datagen, GraspDetector, DetectorConfig, ImageGeometry,
+        units[0])
+    by_path["generate_view, 3 channels (1 view; wrapper calls: the warm "
+            "pass's warm-ups and captures, two eager passes)"] = launches_gen3
+    relabel_check_eager(torch, detector, cand, datagen, det, units[0])
+    datagen_breakdown_eager(torch, detector, cand, datagen, det, units[1])
     trained = training_path(torch, lenet, train, data, units)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2405,9 +2746,15 @@ def main():
                 cfg_path, paths[1], tmp).items():
             by_path[f"{name} CLI, 3 channels"] = launches
         api_15ch(api, DetectorConfig, pcd, paths[1], cam)
+        api_cache_check(torch, api, DetectorConfig, syn)
         pcd_routes(pcd, paths[1:] + [sensor_frame_pcd(pcd, tmp)])
         profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp)
-        profile_offline(torch, profiling, datagen, det, units[1], tmp)
+        traced_view = profile_offline(torch, profiling, datagen, det,
+                                      units[1], tmp)
+        traced_view3 = profile_offline(torch, profiling, datagen, det_gen3,
+                                       units[0], tmp, "raster_sums",
+                                       "3 channels")
+        del det_gen3
         training_routes(torch, profiling, train, lenet, trained, data, tmp)
         weights_path(torch, syn, lenet, detector, GraspDetector,
                      DetectorConfig, convert_weights, trained, tmp)
@@ -2417,6 +2764,7 @@ def main():
     reference_check(torch, syn, lenet, GraspDetector, detector,
                     DetectorConfig(num_samples=32, image_geometry=ImageGeometry(
                         num_channels=3)), img.raster_sums)
+    net_swap_check(torch, lenet, syn, det, GraspDetector, DetectorConfig)
 
     entries["raster_blocks"]["launches"] = launches15["raster_blocks"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
@@ -2426,7 +2774,22 @@ def main():
         e["launches_by_path"] = {path: launches[name]
                                  for path, launches in by_path.items()}
     entries["raster_blocks"]["launches_by_path"][
-        "generate_view, 15 channels, per view"] = per_view
+        "generate_view, 15 channels, eager route, per view (wrapper calls)"
+    ] = per_view
+    entries["raster_blocks"]["launches_by_path"][
+        "generate_view, 15 channels, graph route, per view (recorded by "
+        "the captures of the keys each view replayed; not traced)"
+    ] = per_view_graph
+    entries["raster_blocks"]["launches_by_path"][
+        f"generate_view, 15 channels, graph route, {units[1][0]} view "
+        f"{units[1][1]} (from its trace)"] = traced_view
+    entries["raster_sums"]["launches_by_path"][
+        f"generate_view, 3 channels, graph route, {units[0][0]} view "
+        f"{units[0][1]} (recorded by the captures of the keys it replayed)"
+    ] = [replayed_gen3]
+    entries["raster_sums"]["launches_by_path"][
+        f"generate_view, 3 channels, graph route, {units[0][0]} view "
+        f"{units[0][1]} (from its trace)"] = traced_view3
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_ratio", "launches_by_path", "staged_chunk", "note")

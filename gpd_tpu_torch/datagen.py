@@ -2,13 +2,20 @@
 ``DataGenerator``, src/gpd/data_generator.cpp).
 
 Per (object, view) pair: candidates and grasp images from the view cloud on
-the card (``detector.detect_core``, so ``raster_blocks`` at 12/15 channels
-and ``raster_sums`` at 1/3), ground-truth antipodal labels by re-evaluating
-each candidate against the object's full mesh cloud
-(``ops.candidates.reevaluate_hypotheses``), 50/50 positive/negative
-balancing, and chunked HDF5 output in the reference's dataset format
-('images' (N, s, s, C) uint8 + 'labels' (N, 1) uint8,
+the card (``raster_blocks`` at 12/15 channels and ``raster_sums`` at 1/3),
+ground-truth antipodal labels by re-evaluating each candidate against the
+object's full mesh cloud (``ops.candidates.reevaluate_hypotheses``), 50/50
+positive/negative balancing, and chunked HDF5 output in the reference's
+dataset format ('images' (N, s, s, C) uint8 + 'labels' (N, 1) uint8,
 data_generator.cpp:279-304).
+
+Each attempt runs as gpd_tpu's programs (datagen.py:227-244): the
+detector's A and B (``GraspDetector.candidates_with_images``: samples and
+candidates, one read of their counts, images and scores over the live
+blocks and chunks), then R, the relabeling, each a CUDA graph replay on a
+card in the detector's graphs and pool, eager on the CPU; then one read of
+the valid labels. The detector's ``_force_eager`` takes the eager attempt
+(``sample_points``, ``detect_core``, ``reevaluate_hypotheses``).
 
 Progress is journaled per (object, view), so an interrupted run resumes
 where it left off; rows are written at running offsets as the reference's
@@ -39,7 +46,7 @@ import torch
 
 from gpd_tpu_torch.config import ConfigFile
 from gpd_tpu_torch.core.types import CloudArrays
-from gpd_tpu_torch.detector import GraspDetector, detect_core
+from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.ops import candidates as cand
 
 
@@ -232,7 +239,8 @@ class DataGenerator:
         on such views forever). The relabeling cap is the view cloud's
         effective config, as in gpd_tpu (datagen.py:217). Returns (images
         (N, s, s, C) uint8, labels (N,) int32); ``last_counts`` holds the
-        attempts, candidates and positives."""
+        attempts, candidates and positives, and the detector's
+        ``last_graphs`` the keys the view replayed."""
         det = self.detector
         cfg = det.effective_config(view_cloud)
         min_pos = self.gen.min_grasps_per_view
@@ -240,19 +248,13 @@ class DataGenerator:
         labels_all: List[np.ndarray] = []
         n_pos = 0
         zero_streak = 0
+        det.last_graphs = []
         for _ in range(8):
-            spos, smask = det.sample_cloud(view_cloud, generator)
-            cap = det.image_cap(spos.shape[0])
-            grasps, imgs = detect_core(view_cloud, spos, smask, det.net,
-                                       generator, cfg, cap)
-            labels, _ = cand.reevaluate_hypotheses(mesh_cloud, grasps, cfg)
-            # Candidates come valid-first: the labels of the valid prefix go
-            # to the host, its images stay on the device until balancing
-            # has picked the rows to keep.
-            n_valid = int(grasps.valid.sum())
-            labels_all.append(labels[:n_valid].cpu().numpy())
-            images_all.append(imgs[:n_valid])
-            got = int(labels_all[-1].sum())
+            labels, images = self._attempt(view_cloud, mesh_cloud, generator,
+                                           cfg)
+            labels_all.append(labels)
+            images_all.append(images)
+            got = int(labels.sum())
             n_pos += got
             zero_streak = zero_streak + 1 if got == 0 else 0
             if n_pos >= min_pos or zero_streak >= 2:
@@ -268,6 +270,26 @@ class DataGenerator:
         images = torch.cat(images_all)
         rows = torch.from_numpy(keep.astype(np.int64)).to(images.device)
         return images[rows].cpu().numpy(), labels[keep]
+
+    def _attempt(self, view_cloud: CloudArrays, mesh_cloud: CloudArrays,
+                 generator: torch.Generator, cfg
+                 ) -> Tuple[np.ndarray, torch.Tensor]:
+        """One attempt: the valid candidates' labels on the host and their
+        images on the device (a copy). Candidates come valid-first, so both
+        are the valid prefix. R, the relabeling, is keyed by the hand
+        capacity, the mesh cloud's capacity and camera count and ``cfg``;
+        the candidates and the mesh are copied into its inputs, and it
+        draws nothing."""
+        det = self.detector
+        grasps, images, n_valid = det.candidates_with_images(
+            view_cloud, generator, cfg)
+
+        labels = det._run(
+            ("relabel", mesh_cloud.device, grasps.capacity,
+             mesh_cloud.capacity, mesh_cloud.num_cameras, cfg),
+            lambda _, mesh, g: cand.reevaluate_hypotheses(mesh, g, cfg)[0],
+            (mesh_cloud, grasps))
+        return labels[:n_valid].cpu().numpy(), images[:n_valid].clone()
 
     def generate(self, items: Sequence[Tuple[str, int, CloudArrays, CloudArrays]],
                  writer_train: HDF5ShardWriter,

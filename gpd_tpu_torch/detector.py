@@ -18,6 +18,10 @@ the stage-timed route and the staged route run eagerly, reading each count
 where they need it; with ``host_reads=False`` (CEM's fused program) every
 block runs, masked, and nothing is read back.
 
+``GraspDetector.candidates_with_images`` runs A and B the same way, B with
+the images, for data generation (``datagen.py``, whose relabeling is a
+third program on the same graphs and pool) and ``api.calc_grasp_descriptors``.
+
 ``GraspDetector.preprocess_cloud`` runs gpd_tpu's preprocess programs
 (detector.py:40-66, 623-642) the same way: workspace filter and voxels,
 the outlier filter, normals, each a CUDA graph replay on a card and eager on
@@ -363,7 +367,8 @@ def score_candidates(cloud: CloudArrays, grasps: Grasps,
                      scores_only: bool = True,
                      timer: Optional[profiling.StageTimer] = None,
                      host_reads: bool = True,
-                     live: Optional[Tuple[int, int]] = None
+                     live: Optional[Tuple[int, int]] = None,
+                     images_out: Optional[torch.Tensor] = None
                      ) -> Tuple[Grasps, Optional[torch.Tensor]]:
     """Images + CNN scores for a candidate batch in the hand search's
     sample-major layout (the reference's pruneGraspCandidates shape,
@@ -381,9 +386,10 @@ def score_candidates(cloud: CloudArrays, grasps: Grasps,
     Returns (scored Grasps in valid-first order, images): with
     ``scores_only=False`` the (G, size, size, C) uint8 images in the same
     order, zeros for the chunks past the last valid hand (as gpd_tpu's
-    skipped chunks); with ``scores_only=True`` None, and no chunk's images
-    outlive its scoring. A ``timer`` gets the descriptors, images and
-    classify stages.
+    skipped chunks), written into ``images_out`` when given (a tensor of
+    that shape and type); with ``scores_only=True`` None, and no chunk's
+    images outlive its scoring. A ``timer`` gets the descriptors, images
+    and classify stages.
     """
     timer = timer or profiling.StageTimer(on=False)
     S = sample_pos.shape[0]
@@ -406,9 +412,16 @@ def score_candidates(cloud: CloudArrays, grasps: Grasps,
     images = None
     if not scores_only:
         ig = cfg.image_geometry
-        images = torch.zeros((n_chunks * image_cap, ig.size, ig.size,
-                              ig.num_channels), dtype=torch.uint8,
-                             device=device)
+        shape = (n_chunks * image_cap, ig.size, ig.size, ig.num_channels)
+        if images_out is None:
+            images = torch.zeros(shape, dtype=torch.uint8, device=device)
+        else:
+            if images_out.shape != shape or images_out.dtype != torch.uint8:
+                raise ValueError(f"images_out is {images_out.dtype} "
+                                 f"{tuple(images_out.shape)}; the images are "
+                                 f"uint8 {shape}")
+            images = images_out
+            images[n_live * image_cap:] = 0
     for i in range(n_live):
         chunk = slice(i * image_cap, (i + 1) * image_cap)
         chunk_images = _images_for(cloud, g_all.take(chunk), nn_idx, nn_valid,
@@ -529,18 +542,23 @@ class CapturedGraph:
     The capture follows PyTorch's recipe: one eager run on a side stream
     first (it builds the kernels, makes every device constant and sets up
     cuBLAS and cuDNN), then the capture into ``pool``, which every graph of
-    one owner shares: a ``GraspDetector``'s preprocess and detect programs,
-    a ``SequentialImportanceSampling``'s keys, a trainer's steps
-    (``net.train.StepGraphs``). Sharing is safe because replays run one at
-    a time on the caller's stream, a graph is captured after the graphs
-    whose outputs it reads, while those outputs are alive, and what a
-    request keeps of a graph's outputs is copied before any other graph
-    replays: detect's selection and preprocess's cloud are cloned, each
-    preprocess compaction copies its program's outputs to the host, a
-    training step's loss and accuracy are cloned. A later capture may so
-    take memory that an earlier graph uses only inside its own replay, and
-    the pool holds about one key's working set, not the sum over keys. The
-    raster launchers call ``cudaFuncSetAttribute`` and the occupancy query
+    one owner shares: a ``GraspDetector``'s preprocess, detect and data
+    generation programs, a ``SequentialImportanceSampling``'s keys, a
+    trainer's steps (``net.train.StepGraphs``). Sharing is safe because
+    replays run one at a time on the caller's stream, a graph is captured
+    after the graphs whose outputs it reads, while those outputs are alive,
+    and what a request keeps of a graph's outputs is copied before any
+    other graph replays: detect's selection and preprocess's cloud are
+    cloned, each preprocess compaction copies its program's outputs to the
+    host, a data-generation attempt clones its images and copies its labels
+    to the host, a training step's loss and accuracy are cloned. A later
+    capture may so take memory that an earlier graph uses only inside its
+    own replay, and the pool holds about one key's working set plus the
+    outputs every graph keeps, not the sum of the working sets; a
+    data-generation B's images, the one large output, go to a buffer
+    outside the pool that every such B shares
+    (``GraspDetector._images_buffer``). The raster launchers call
+    ``cudaFuncSetAttribute`` and the occupancy query
     during the capture too; neither is a stream operation, and a capture
     accepts both.
 
@@ -554,7 +572,10 @@ class CapturedGraph:
     capture's, whose launches go into the graph (``launches``, per wrapper
     in ``_KERNELS``' order). A replay calls no wrapper; what it runs on the
     card shows in a profiler trace of it. ``program`` is kept, and with it
-    what it closes over (the net of a key that holds ``id(net)``)."""
+    what it closes over: a program whose key holds ``id(net)`` binds that
+    net, so no other net can take its identity while the graph exists (or,
+    as ``net.train.StepGraphs``' eval step, reaches it through a weak
+    reference, checked before each replay)."""
 
     def __init__(self, device: torch.device, program, inputs: tuple = (),
                  generator: Optional[torch.Generator] = None, pool=None):
@@ -607,22 +628,42 @@ class GraspDetector:
             config = load_config(config)
         self.cfg: DetectorConfig = config
         self.device = resolve_device(device)
-        if params is None:
-            params = self._default_params()
-        self.net = lenet.params_from_numpy(params, self.device)
-        self.last_runtimes = {}
-        self.last_counts = {}
-        # detect's CUDA graphs by static key (``_detect_programs``; the
+        # The CUDA graphs of the detector's programs by static key (the
         # counterpart of jax.jit's caches of gpd_tpu's programs), all
         # captured into one memory pool, and the keys the last request
         # replayed. A request of seen keys captures nothing.
         self.graphs = {}
         self.pool = None
         self.last_graphs = []
-        # Test hook: detect's eager route without the stage waits (the
-        # baseline the graphs are timed and held against), as CEM's
-        # ``_force_loop``.
+        # On a card, the images buffer of every B that keeps its images, by
+        # shape (``_images_buffer``).
+        self._images = {}
+        if params is None:
+            params = self._default_params()
+        self.net = lenet.params_from_numpy(params, self.device)
+        self.last_runtimes = {}
+        self.last_counts = {}
+        # Test hook: the eager routes of detect (without the stage waits),
+        # preprocess and data generation, the baselines the graphs are
+        # timed and held against, as CEM's ``_force_loop``.
         self._force_eager = False
+
+    @property
+    def net(self) -> lenet.LeNet:
+        """The LeNet that scores candidates."""
+        return self._net
+
+    @net.setter
+    def net(self, net: lenet.LeNet):
+        """A different net drops the graphs whose key holds the old net's
+        identity (detect's and data generation's parts): they keep the old
+        net alive, and no later request could replay them. The preprocess
+        and relabeling graphs hold no net and stay."""
+        old = self.__dict__.get("_net")
+        if old is not None and net is not old:
+            self.graphs = {k: g for k, g in self.graphs.items()
+                           if id(old) not in k}
+        self._net = net
 
     def _default_params(self):
         """The configured weights in any format ``lenet.load_params`` reads;
@@ -690,8 +731,6 @@ class GraspDetector:
             return c.compact_host(capacity)
 
         def run(name, program, cloud, *static):
-            if self._force_eager:
-                return program(cloud, *static)
             key = (name, cloud.device, cloud.capacity, cloud.num_cameras,
                    *static)
             return self._run(key, lambda _, c: program(c, *static), (cloud,),
@@ -839,32 +878,62 @@ class GraspDetector:
     def _detect_programs(self, cloud: CloudArrays, sample_pos, sample_mask,
                          gen: torch.Generator, cfg: DetectorConfig):
         """``detect`` as gpd_tpu's device programs (detector.py:689-745):
-        A, ``candidates_program``; one read of its counts, the request's
-        only read back to the host before its result; B, ``score_candidates``
-        over the live sample blocks and image chunks; C,
-        ``select_and_cluster``. The profiler spans are gpd_tpu's:
-        ``detect_core`` (A, the read, B) and ``select_and_cluster`` (C),
-        each ended by a wait, to time it.
+        A, the read of its counts and B (``_scored_programs``), then C,
+        ``select_and_cluster``, which reads B's outputs in place and is
+        keyed as B. The profiler spans are gpd_tpu's: ``detect_core`` (A,
+        the read, B) and ``select_and_cluster`` (C), each ended by a wait,
+        to time it. Returns (grasps, counts, detect s, select s, {})."""
+        t_c0 = time.perf_counter()
+        with profiling.span("detect_core"):
+            scored, _, counts, key = self._scored_programs(
+                cloud, sample_pos, sample_mask, gen, cfg)
+            _sync(self.device)
+        t_detect = time.perf_counter() - t_c0
+
+        t_s0 = time.perf_counter()
+        with profiling.span("select_and_cluster"):
+            out = clone_tree(self._run(
+                ("select",) + key, lambda g: select_and_cluster(scored, cfg)))
+            _sync(self.device)
+        n_valid, _, n_samples, n_points = counts
+        counts = dict(points=n_points, samples=n_samples, candidates=n_valid)
+        return out, counts, t_detect, time.perf_counter() - t_s0, {}
+
+    def _scored_programs(self, cloud: CloudArrays, sample_pos, sample_mask,
+                         gen: torch.Generator, cfg: DetectorConfig,
+                         images: bool = False):
+        """gpd_tpu's ``detect_core`` as device programs: A,
+        ``candidates_program``; one read of its counts, the only read back
+        to the host; B, ``score_candidates`` over the live sample blocks and
+        image chunks, with the images if ``images``.
 
         On a card each part replays a CUDA graph (``CapturedGraph``,
         ``self.graphs``, one pool ``self.pool``), captured at the first
         request of its key in a span of its own, ``detect_capture``. A's key
         is the device, the cloud's capacity and camera count, the LeNet's
-        identity, the effective config, the sample count and whether the
-        caller gave the samples (they are then copied into A's inputs); B's
-        and C's add the live (sample blocks, image chunks), which the read
-        gives. B reads A's outputs and C B's in place. A and B draw from
-        one generator registered with both graphs: the caller's state is
-        copied in before A and back out after B, so the request draws what
-        the eager route draws. On the CPU the same parts run eagerly. A
-        capture that fails raises; nothing falls back to the eager route.
-        Returns (grasps, counts, detect s, select s, {})."""
+        identity, the config, the sample count and whether the caller gave
+        the samples (they are then copied into A's inputs); B's adds the
+        live (sample blocks, image chunks), which the read gives, and
+        ``"images"`` if it keeps them. B reads A's outputs in place, and
+        binds the net it was captured with. A and B draw from one generator
+        registered with both graphs: the caller's state is copied in before
+        A and back out after B, so the request draws what the eager route
+        draws. On the CPU the same parts run eagerly. A capture that fails
+        raises; nothing falls back to the eager route.
+
+        Returns B's outputs, (scored Grasps in valid-first order, images or
+        None), which the next replay rewrites (the images, in the
+        detector's ``_images_buffer``, the next B with images of any key);
+        A's counts as a list (valid
+        hands, active samples, valid samples, cloud points); and B's key
+        without its name."""
         given = sample_pos is not None
         S = sample_pos.shape[0] if given else cfg.num_samples
         cap = self.image_cap(S)
         inputs = (cloud, sample_pos, sample_mask) if given else (cloud,)
-        key = (cloud.device, cloud.capacity, cloud.num_cameras, id(self.net),
-               cfg, S, given)
+        net = self.net
+        key = (cloud.device, cloud.capacity, cloud.num_cameras, id(net), cfg,
+               S, given)
         private = gen
         if self.device.type == "cuda":
             if gen.device.type != "cuda":
@@ -879,39 +948,80 @@ class GraspDetector:
             # A hands its cloud on: on a card, B reads the graph's copy.
             return (cloud,) + candidates_program(cloud, spos, smask, g, cfg)
 
-        t_c0 = time.perf_counter()
-        with profiling.span("detect_core"):
-            cloud_a, grasps, spos, smask, counts = self._run(
-                ("candidates",) + key, part_a, inputs, private)
-            n_valid, n_active, n_samples, n_points = counts.tolist()
-            # The live blocks and chunks, as counts at their ends.
-            blocks = -(-n_active // _SAMPLE_BLOCK) if S > _SAMPLE_BLOCK else 0
-            live = (-(-n_valid // cap) * cap, blocks * _SAMPLE_BLOCK)
-            key = key + live
-            scored = self._run(
-                ("score",) + key, lambda g: score_candidates(
-                    cloud_a, grasps, spos, smask, self.net, g, cfg, cap,
-                    live=live)[0], generator=private)
-            _sync(self.device)
-        t_detect = time.perf_counter() - t_c0
+        cloud_a, grasps, spos, smask, counts = self._run(
+            ("candidates",) + key, part_a, inputs, private)
+        counts = counts.tolist()
+        n_valid, n_active = counts[:2]
+        # The live blocks and chunks, as counts at their ends.
+        blocks = -(-n_active // _SAMPLE_BLOCK) if S > _SAMPLE_BLOCK else 0
+        live = (-(-n_valid // cap) * cap, blocks * _SAMPLE_BLOCK)
+        key = key + live
+        out = (self._images_buffer(cfg, max(1, -(-grasps.capacity // cap))
+                                   * cap) if images else None)
+        scored, imgs = self._run(
+            ("score",) + key + (("images",) if images else ()),
+            lambda g: score_candidates(cloud_a, grasps, spos, smask, net, g,
+                                       cfg, cap, scores_only=not images,
+                                       live=live, images_out=out),
+            generator=private)
         if private is not gen:
             gen.set_state(private.get_state())
+        return scored, imgs, counts, key
 
-        t_s0 = time.perf_counter()
-        with profiling.span("select_and_cluster"):
-            out = clone_tree(self._run(
-                ("select",) + key, lambda g: select_and_cluster(scored, cfg)))
-            _sync(self.device)
-        counts = dict(points=n_points, samples=n_samples, candidates=n_valid)
-        return out, counts, t_detect, time.perf_counter() - t_s0, {}
+    def _images_buffer(self, cfg: DetectorConfig, rows: int) -> torch.Tensor:
+        """The (rows, size, size, C) uint8 tensor a B with images writes
+        into. On a card one per shape, made once outside the graphs' pool
+        and shared by every such B key: a live pair's key then adds its
+        working set to the pool, not a copy of the images (8192 x 60 x 60 x
+        15 bytes at the default config). A B's images are read before the
+        next B replays, so one buffer serves them all. On the CPU a new
+        tensor each call, as the eager route's."""
+        ig = cfg.image_geometry
+        shape = (rows, ig.size, ig.size, ig.num_channels)
+        if self.device.type != "cuda":
+            return torch.empty(shape, dtype=torch.uint8, device=self.device)
+        if shape not in self._images:
+            self._images[shape] = torch.empty(shape, dtype=torch.uint8,
+                                              device=self.device)
+        return self._images[shape]
+
+    def candidates_with_images(self, cloud: CloudArrays,
+                               generator: Optional[torch.Generator] = None,
+                               cfg: Optional[DetectorConfig] = None
+                               ) -> Tuple[Grasps, torch.Tensor, int]:
+        """gpd_tpu's ``_sample_kernel`` + ``detect_core(scores_only=False)``
+        (datagen.py:227-240, api.py:64-69): samples drawn from ``cloud``,
+        the scored candidates in valid-first order, their (G, size, size, C)
+        uint8 images, and the valid count. ``cfg`` defaults to the
+        effective config of ``cloud``.
+
+        By default the device programs of ``detect``'s A and B
+        (``_scored_programs``, B with images): A's key is ``detect``'s, the
+        valid count comes from its read, and the outputs are the graph's
+        own on a card (the images the detector's buffer), which the next
+        replay rewrites (a caller clones what it keeps). Under
+        ``_force_eager``: ``sample_points`` and the eager
+        ``detect_core``, which reads its counts where it needs them, then
+        one more read for the valid count."""
+        cfg = cfg or self.effective_config(cloud)
+        gen = self._generator(generator)
+        if self._force_eager:
+            spos, smask = sample_points(cloud, gen, cfg)
+            grasps, images = detect_core(cloud, spos, smask, self.net, gen,
+                                         cfg, self.image_cap(spos.shape[0]))
+            return grasps, images, int(grasps.valid.sum())
+        scored, images, counts, _ = self._scored_programs(
+            cloud, None, None, gen, cfg, images=True)
+        return scored, images, counts[0]
 
     def _run(self, key: tuple, program, inputs: tuple = (),
              generator: Optional[torch.Generator] = None,
              capture_span: str = "detect_capture"):
-        """``program(generator, *inputs)``: eagerly on the CPU; on a card a
-        replay of its graph in ``self.graphs[key]``, captured first (in the
-        span ``capture_span``) if the key is new."""
-        if self.device.type != "cuda":
+        """``program(generator, *inputs)``: eagerly on the CPU and under
+        ``_force_eager``; on a card a replay of its graph in
+        ``self.graphs[key]``, captured first (in the span ``capture_span``)
+        if the key is new."""
+        if self.device.type != "cuda" or self._force_eager:
             return program(generator, *inputs)
         if key not in self.graphs:
             with profiling.span(capture_span):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -112,16 +113,24 @@ class StepGraphs:
         self.device = torch.device(device)
         self.graphs = {}
         self.pool = None
+        # Weak references to the nets of the eval graphs, by key.
+        self._nets = {}
 
-    def _step(self, key: tuple, program, inputs: tuple):
+    def _step(self, key: tuple, program, inputs: tuple, net_ref=None):
         """``program(*inputs)``: eagerly on the CPU; on a card its outputs,
         copied, from a replay of its graph, or from the capture's warm-up
-        if ``key`` (with the inputs' shapes and dtypes) is new."""
+        if ``key`` (with the inputs' shapes and dtypes) is new. A graph
+        whose program reaches its net through ``net_ref``, a weak
+        reference, is captured anew once that net is gone: another net may
+        then have taken its identity."""
         if self.device.type != "cuda":
             return program(*inputs)
         key = key + tuple((t.shape, t.dtype) for t in inputs)
-        if key in self.graphs:
+        ref = self._nets.get(key)
+        if key in self.graphs and (ref is None or ref() is not None):
             return clone_tree(self.graphs[key].replay(*inputs))
+        if net_ref is not None:
+            self._nets[key] = net_ref
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         runs = []
@@ -142,10 +151,24 @@ class StepGraphs:
 
     def eval_step(self, net, images_u8: torch.Tensor, labels: torch.Tensor,
                   weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``eval_step``: (weighted cross-entropy sum, hits)."""
+        """``eval_step``: (weighted cross-entropy sum, hits). The graph
+        reaches the net through a weak reference, so the ``StepGraphs``
+        kept with a net (``net_steps``) does not keep it alive."""
+        ref = weakref.ref(net)
         return self._step(("eval", id(net)),
-                          lambda x, y, w: eval_step(net, x, y, w),
-                          (images_u8, labels, weight))
+                          lambda x, y, w: eval_step(ref(), x, y, w),
+                          (images_u8, labels, weight), ref)
+
+
+def net_steps(net: lenet.LeNet) -> StepGraphs:
+    """The ``StepGraphs`` kept with ``net`` on its device, made at first
+    use: an attribute, not a submodule, so it lives as long as the net and
+    no longer."""
+    device = net.conv1.weight.device
+    steps = getattr(net, "_step_graphs", None)
+    if steps is None or steps.device != device:
+        steps = net._step_graphs = StepGraphs(device)
+    return steps
 
 
 class HDF5Dataset:
@@ -193,15 +216,16 @@ def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256,
              steps: Optional[StepGraphs] = None) -> Tuple[float, float]:
     """(mean loss, accuracy) over ``dataset.blocks()`` (network.py:66-88),
     the tail batch padded with zeros and weighted out. Without a ``mesh``
-    each batch is a step of ``steps`` (by default new ``StepGraphs``: on a
-    card one graph per padded batch shape). With a ``mesh`` (every rank
+    each batch is a step of ``steps`` (by default the ``StepGraphs`` kept
+    with the net, ``net_steps``: on a card one graph per padded batch
+    shape, captured at the net's first evaluation). With a ``mesh`` (every rank
     calling, on the same data), each rank evaluates its slice of every
     batch eagerly and the sums are all-reduced: every rank returns the
     whole set's numbers."""
     device = net.conv1.weight.device
     step = eval_step
     if mesh is None:
-        step = (steps or StepGraphs(device)).eval_step
+        step = (steps or net_steps(net)).eval_step
     batch_size = _dp_batch(batch_size, mesh)
     per = batch_size // (1 if mesh is None else mesh.size)
     mine = slice(0, per) if mesh is None else slice(mesh.rank * per,

@@ -356,7 +356,7 @@ def _reevaluate_block(points, normals, pmask, g_sample, g_R, g_top, g_mid,
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     hcrop = nvalid & (z > -params.hand_height) & (z < params.hand_height)
 
-    fs = torch.tensor(params.spacing, dtype=torch.float32, device=x.device)
+    fs = constant(params.spacing, x.device)
     fw = float(np.float32(params.finger_width))
     P = params.num_placements
     bite = g_top

@@ -18,7 +18,11 @@ through those images. The descriptor test holds every other hand's score to
 (seeds 3 and 5 of detect_grasps_in_cloud do).
 """
 
+import dataclasses
+import os
+import shutil
 import unittest.mock as mock
+import weakref
 
 import jax
 import numpy as np
@@ -36,6 +40,7 @@ from gpd_tpu_torch import api
 from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig
 from gpd_tpu_torch.detector import GraspDetector
+from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.ops import draws
 from test_torch_detector import (T, _interpret, frame_gap_ok, inject,
                                  lattice_shell, port_cloud)
@@ -195,3 +200,66 @@ def test_scores_diverge_only_with_images(seed):
     assert diff.mean() < 5e-3
     apart = np.abs(gj.score[v] - gt.score[v]) > 1e-3
     assert not (apart & ~diff.any(axis=(1, 2, 3))).any()
+
+
+def weights_config(tmp_path, **kw):
+    """A config whose weights file is a copy of the packaged 15-channel
+    checkpoint in ``tmp_path``, and that file's path."""
+    path = tmp_path / "lenet.npz"
+    shutil.copy(lenet.default_params_path(15), path)
+    return DetectorConfig(weights_file=str(path), **kw), path
+
+
+def test_equal_configs_share_one_detector(tmp_path):
+    """Equal configs, as values or as equal cfg files, get the process's one
+    detector on a device; a detector passed in is used as it is; another
+    config gets another detector."""
+    cfg, path = weights_config(tmp_path, num_samples=32)
+    text = f"weights_file = {path}\nnum_samples = 32\n"
+    for name in ("a.cfg", "b.cfg"):
+        (tmp_path / name).write_text(text)
+    det = api._as_detector(cfg, "cpu")
+    assert api._as_detector(dataclasses.replace(cfg), "cpu") is det
+    assert api._as_detector(str(tmp_path / "a.cfg"), "cpu") is \
+        api._as_detector(str(tmp_path / "b.cfg"), "cpu")
+    assert api._as_detector(det, "meta") is det
+    assert api._as_detector(dataclasses.replace(cfg, num_samples=64),
+                            "cpu") is not det
+
+
+def test_changed_weights_or_device_give_another_detector(tmp_path):
+    """A weights file touched since the last call gives a new detector with
+    the file's weights, which later calls share; another device gives
+    another detector."""
+    cfg, path = weights_config(tmp_path, num_samples=32)
+    det = api._as_detector(cfg, "cpu")
+    params = lenet.load_params_npz(str(path))
+    params = {k: v * 2 for k, v in params.items()}
+    np.savez(path, **params)
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    new = api._as_detector(cfg, "cpu")
+    assert new is not det and api._as_detector(cfg, "cpu") is new
+    np.testing.assert_array_equal(
+        new.net.conv1.weight.detach().numpy(),
+        2 * det.net.conv1.weight.detach().numpy())
+    meta = api._as_detector(cfg, "meta")
+    assert meta is not new and meta.net.conv1.weight.device.type == "meta"
+    assert api._as_detector(cfg, "cpu") is new
+
+
+def test_another_config_replaces_the_detector(tmp_path):
+    """A device keeps one detector: another config replaces it (the old one
+    is freed), and the first config then gets a new one; 'cpu' and
+    torch.device('cpu') are one device."""
+    cfg, _ = weights_config(tmp_path, num_samples=32)
+    det = api._as_detector(cfg, "cpu")
+    assert api._as_detector(cfg, torch.device("cpu")) is det
+    gone = weakref.ref(det)
+    del det
+    other = api._as_detector(dataclasses.replace(cfg, num_samples=64), "cpu")
+    assert gone() is None
+    assert [d for *_, d in api._DETECTORS.values()
+            if d.device.type == "cpu"] == [other]
+    again = api._as_detector(cfg, "cpu")
+    assert again is not other and again.cfg == cfg

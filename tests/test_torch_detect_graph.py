@@ -17,15 +17,18 @@ none:
     python -m pytest tests/test_torch_detect_graph.py -m cuda --noconftest
 """
 
+import gc
 import unittest.mock as mock
 
 import numpy as np
 import pytest
 import torch
 
+from gpd_tpu_torch import api, datagen
 from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
 
@@ -139,6 +142,39 @@ def test_few_valid_hands_take_one_live_chunk():
     assert 0 < det.last_counts["candidates"] <= cap == 512 < 96 * 8
     assert part_b.call_args.kwargs["live"] == (cap, 0)
     assert score.call_count == 1
+
+
+def test_a_new_net_drops_the_old_nets_graphs():
+    """GraspDetector.net's setter on the keys a request, a preprocess and a
+    data-generation view make (``_run`` patched to record each key, as a
+    card would capture it): the same net drops nothing; another net drops
+    the keys that hold the old net's identity (detect's A, B and C and
+    data generation's B) and keeps the preprocess and relabeling keys."""
+    det, cloud = rods_detector(15)
+    run = det._run
+
+    def recording_run(key, program, inputs=(), generator=None, **kw):
+        det.graphs[key] = None
+        return run(key, program, inputs, generator, **kw)
+    dg = datagen.DataGenerator(det, datagen.DataGenConfig(
+        min_grasps_per_view=1))
+    with mock.patch.object(det, "_run", recording_run):
+        from test_torch_detector import rods_only
+        p, cs, vp = rods_only(6)
+        det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+        det.detect(cloud, generator=gen(0), verbose=False)
+        dg.generate_view(cloud, cloud, gen(1), np.random.default_rng(0))
+    keys = list(det.graphs)
+    names = [k[0] for k in keys]
+    assert {"prep_filter_voxel", "prep_normals", "candidates", "score",
+            "select", "relabel"} == set(names)
+    old = det.net
+    det.net = old
+    assert list(det.graphs) == keys
+    det.net = lenet.params_from_numpy(lenet.params_to_numpy(old), "cpu")
+    assert [k[0] for k in det.graphs] == [
+        n for n in names if n not in ("candidates", "score", "select")]
+    assert not any(id(old) in k for k in det.graphs)
 
 
 # ------------------------------------------------------------- on the card
@@ -281,3 +317,50 @@ def test_generator_on_another_device_raises():
     with pytest.raises(ValueError, match="draw on"):
         det.detect(cloud, generator=torch.Generator().manual_seed(0),
                    verbose=False)
+
+
+@pytest.mark.cuda
+def test_swapped_nets_score_as_a_fresh_detector():
+    """det.net swapped to three nets made from the same parameters, each
+    freed by the next swap, then back to the first, with garbage
+    collected: a request scores as a fresh detector's on the same seed
+    (1e-5), and the graphs held only ever hold the current net."""
+    needs_card()
+    det, cloud = table_detector()
+    first = det.net
+    params = lenet.params_to_numpy(first)
+    det.detect(cloud, generator=seeded(0), verbose=False)
+    for _ in range(3):
+        det.net = lenet.params_from_numpy(params, "cuda")
+        det.detect(cloud, generator=seeded(0), verbose=False)
+        assert {k[4] for k in detect_keys(det)} == {id(det.net)}
+    det.net = first
+    gc.collect()
+    out = det.detect(cloud, generator=seeded(0), verbose=False).to_host()
+    fresh = tdet.GraspDetector(DetectorConfig(), device="cuda").detect(
+        cloud, generator=seeded(0), verbose=False).to_host()
+    np.testing.assert_array_equal(out.valid, fresh.valid)
+    assert out.valid.any()
+    np.testing.assert_allclose(out.score[out.valid], fresh.score[fresh.valid],
+                               atol=1e-5)
+    np.testing.assert_allclose(out.position[out.valid],
+                               fresh.position[fresh.valid], atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_api_second_call_captures_nothing():
+    """Two detect_grasps_in_cloud calls with equal configs: one detector
+    serves both, and the second call captures no graph."""
+    needs_card()
+    rng = np.random.default_rng(3)
+    pts, nrm = syn.make_scene(rng, n_objects=2, points_per_object=1500,
+                              table_points=1500, table_halfsize=0.15)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, syn.view_cameras(rng, 2))
+    first = api.detect_grasps_in_cloud(DetectorConfig(), p, view_points=vp,
+                                       cam_source=cs)
+    det = api._as_detector(DetectorConfig(), None)
+    n = len(det.graphs)
+    second = api.detect_grasps_in_cloud(DetectorConfig(), p, view_points=vp,
+                                        cam_source=cs)
+    assert len(det.graphs) == n and det.last_graphs
+    assert len(first) == len(second) > 0

@@ -10,7 +10,9 @@ JAX, so they run where there is none:
     python -m pytest tests/test_torch_train_graph.py -m cuda --noconftest
 """
 
+import gc
 import unittest.mock as mock
+import weakref
 
 import numpy as np
 import pytest
@@ -187,3 +189,73 @@ def test_fit_replays_its_steps(deterministic_cudnn):
                            torch.ones(len(hy), device="cuda"))
     assert abs(loss - float(s) / len(hy)) <= 1e-5 * max(1.0, loss)
     assert acc == int(c) / len(hy)
+
+
+def test_evaluate_keeps_its_step_graphs_with_the_net():
+    """evaluate without ``steps=`` makes one StepGraphs per net, kept with
+    the net (not a submodule, not in its state dict), and reuses it on
+    later calls; another net gets its own."""
+    held = Blocks(batches(2, 15, 6, batch=5))
+    net = lenet.params_from_numpy(lenet.init_params(
+        torch.Generator().manual_seed(0), 15), "cpu")
+    with mock.patch.object(train, "StepGraphs",
+                           wraps=train.StepGraphs) as made:
+        first = train.evaluate(net, held)
+        assert train.evaluate(net, held) == first
+        assert made.call_count == 1
+        steps = train.net_steps(net)
+        assert train.net_steps(net) is steps and made.call_count == 1
+        other = lenet.params_from_numpy(lenet.params_to_numpy(net), "cpu")
+        assert train.evaluate(other, held) == first
+        assert made.call_count == 2 and train.net_steps(other) is not steps
+    assert "_step_graphs" not in dict(net.named_children())
+    assert set(net.state_dict()) == set(other.state_dict())
+
+
+@pytest.mark.cuda
+def test_evaluate_captures_once_per_net():
+    """Two evaluate calls on one card net capture one eval graph."""
+    needs_card()
+    held = Blocks(batches(3, 15, 6, batch=5))
+    net = card_net()
+    with mock.patch.object(train, "CapturedGraph",
+                           wraps=train.CapturedGraph) as capture:
+        first = train.evaluate(net, held)
+        np.testing.assert_allclose(train.evaluate(net, held), first,
+                                   atol=1e-6)
+    assert capture.call_count == 1
+
+
+@pytest.mark.cuda
+def test_evaluated_net_is_freed_without_the_cyclic_gc():
+    """The eval graphs kept with a net reach it through a weak reference:
+    dropping the last reference to an evaluated net frees it, its graphs
+    with it, without the cyclic garbage collector."""
+    needs_card()
+    held = Blocks(batches(2, 15, 6, batch=5))
+    net = card_net()
+    train.evaluate(net, held)
+    assert train.net_steps(net).graphs
+    gone = weakref.ref(net)
+    gc.disable()
+    try:
+        del net
+        assert gone() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_shared_step_graphs_recapture_for_a_freed_nets_identity():
+    """A StepGraphs shared by nets: once an evaluated net is freed, a later
+    net evaluates as a fresh StepGraphs does, whether or not it took the
+    freed net's identity."""
+    needs_card()
+    held = Blocks(batches(2, 15, 6, batch=5))
+    steps = train.StepGraphs("cuda")
+    train.evaluate(card_net(0), held, steps=steps)
+    gc.collect()
+    net = card_net(1)
+    want = train.evaluate(net, held, steps=train.StepGraphs("cuda"))
+    np.testing.assert_allclose(train.evaluate(net, held, steps=steps), want,
+                               atol=1e-6)
