@@ -72,15 +72,32 @@ Phases; any failure exits non-zero and prints no result line:
      detect's candidate count on the same generator seed and share >= 90%
      of detect's selection by position (1e-5);
   7. parallel: a world of one, an NCCL group over a file store on this
-     card, on request 0's scene at the default DetectorConfig:
-     detect_sharded_raw's valid geometry must equal detect_core's on the
-     same samples (same count, 1e-5); sharded_detect_host must select a
-     grasp, all scores finite; CEM with mesh= (the round loop) at the
-     default CEMConfig must find a grasp and the round counts of CEM
-     without a mesh (the fused route); 20 training steps of fit with
-     DistributedDataParallel must give the parameters of 20 plain steps
-     (each tensor within 1e-6 of its largest entry). Each against its unsharded call, in turns, with
-     its raster_blocks launches; no multi-card time is measured;
+     card, on request 0's scene at the default DetectorConfig, by route.
+     detect_sharded_raw and sharded_detect_host by the graph route (the
+     detector as owner: its programs, CUDA graphs in its pool) and the
+     eager route (no owner; _force_eager), the first request of each
+     apart (each capture's ms and pool bytes), then graph, eager, eager,
+     graph, then one traced request by each route (busy share, host launch
+     calls, kernel time): every detect_sharded_raw batch must hold
+     detect_core's valid geometry on the same samples (same count, 1e-5),
+     every graph selection >= 90% of the eager route's by position, a
+     later request must capture nothing and call no kernel wrapper, the
+     traced detect_sharded_raw replay must take fewer than 100 host launch
+     calls, and each traced replay must run the raster_blocks kernels its
+     keys' captures recorded. CEM at the default CEMConfig by the mesh
+     loop through the detector's programs, the eager mesh loop and the
+     fused route, in turns, one traced request each: the same round counts
+     on all three, the same final count on both mesh loops, nothing
+     captured after the first requests, the traced graph loop running the
+     raster_blocks kernels its keys' captures recorded. 40 training steps
+     of fit with DistributedDataParallel (through StepGraphs: its eager
+     steps, then one captured step with its all-reduce) must give the
+     parameters of 40 plain steps, and 40 graph DDP steps those of 40
+     eager DDP steps (each tensor within 1e-6 of its largest entry, under
+     deterministic cuDNN), with ms a step in turns and host launch calls
+     a step from a trace; the data-parallel evaluate must give the eager
+     eval_step sums' loss (1e-6) and accuracy. No multi-card time is
+     measured;
   8. C ABI: the port's gpd_c_api built with the host compiler against this
      Python's headers (or one line saying why it was not built, where
      Python.h is missing), loaded with ctypes, gpd_init("cuda"), a
@@ -2103,130 +2120,396 @@ def host_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def parallel_path(torch, img, syn, det, detector, cem, CEMConfig, lenet,
-                  train, tmp):
+def turns(torch, img, det, requests, order):
+    """requests[route]() in ``order``, each timed on the host to a device
+    sync, the detector's _force_eager set for the route "eager" only:
+    {route: [(ms, result, kernel wrapper calls by kernel)]}."""
+    res = {route: [] for route in requests}
+    for route in order:
+        det._force_eager = route == "eager"
+        before = counts(img)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = requests[route]()
+            torch.cuda.synchronize()
+        finally:
+            det._force_eager = False
+        res[route].append((round((time.perf_counter() - t0) * 1e3, 2), out,
+                           {k: v - before[k] for k, v in counts(img).items()}))
+    return res
+
+
+def traced_span(torch, profiling, fn, d, label, det, eager=False):
+    """fn() traced inside a span of its own ("traced_call") that ends in a
+    device sync, by the detector's graph routes or (``eager``) its eager
+    routes: read_trace's numbers of the span, the raster kernels launched
+    inside it by family (span_launches), and those the captures of the keys
+    it replayed recorded."""
+    def run():
+        with profiling.span("traced_call"):
+            fn()
+            torch.cuda.synchronize()
+    det.last_graphs, det._force_eager = [], eager
+    try:
+        events = traced(profiling, run, d)
+    finally:
+        det._force_eager = False
+    want = {"raster_blocks": 0, "raster_sums": 0}
+    for k in det.last_graphs:
+        for family, n in captured_launches(det.graphs[k]).items():
+            want[family] += n
+    return (read_trace(events, ("traced_call",), label, 0),
+            span_launches(events, "traced_call"), want)
+
+
+def all_kernels(ran):
+    """span_launches' families as launches per kernel (raster_sums2's
+    kernels are raster_sums' and count there)."""
+    return {k: ran.get(k, 0) for k in KERNELS}
+
+
+def sharded_by_route(torch, img, profiling, det, detector, sharded, mesh,
+                     cloud, d):
+    """detect_sharded_raw (on detect_core's samples of seed 0) and
+    sharded_detect_host (seed 0) by their graph route (the detector as
+    owner: its programs, replayed from CUDA graphs) and their eager route
+    (no owner; _force_eager for sharded_detect_host): each call's first
+    request apart (what it captured, each capture's ms and pool bytes),
+    then graph, eager and the unsharded call (detect_core; detect) in turns
+    (graph, eager, unsharded, unsharded, eager, graph), then one traced
+    request by each route (busy share, host launch calls, kernel time).
+    Fails unless a later
+    request captures nothing and no graph request calls a kernel wrapper,
+    every detect_sharded_raw batch holds detect_core's valid geometry
+    (same count, 1e-5), every graph selection shares >= 90% of the eager
+    route's by position with finite scores, the traced detect_sharded_raw
+    replay takes fewer than 100 host launch calls, and each traced replay
+    runs the raster_blocks kernels its keys' captures recorded. Returns
+    each route's launches (the graph route's from its trace)."""
+    cfg = det.effective_config(cloud)
+    spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
+    s_l, m_l = sharded.shard_samples(mesh, spos, smask)
+    cap = det.image_cap(s_l.shape[0])
+    def detect_core():
+        return detector.detect_core(cloud, spos, smask, det.net,
+                                    seeded(torch, 0), cfg, cap,
+                                    scores_only=True)[0]
+    core = geometry_rows(detect_core())
+    unsharded = {"detect_sharded_raw": ("detect_core", detect_core),
+                 "sharded_detect_host": ("detect", lambda: det.detect(
+                     cloud, generator=seeded(torch, 0), verbose=False))}
+    calls = {
+        "detect_sharded_raw": lambda: sharded.detect_sharded_raw(
+            sharded.replicate(mesh, cloud), s_l, m_l,
+            sharded.replicate(mesh, det.net), seeded(torch, 0), cfg, cap,
+            mesh, owner=None if det._force_eager else det),
+        "sharded_detect_host": lambda: sharded.sharded_detect_host(
+            det, cloud, generator=seeded(torch, 0), mesh=mesh)}
+    by_path = {}
+    for name, fn in calls.items():
+        n_graphs = len(det.graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first = graph_keys_line(det, n_graphs, time.perf_counter() - t0)
+        turns(torch, img, det, {"eager": fn}, ("eager",))   # warm-up
+        n_graphs = len(det.graphs)
+        res = turns(torch, img, det, {"graph": fn, "eager": fn,
+                                      "unsharded": unsharded[name][1]},
+                    ("graph", "eager", "unsharded", "unsharded", "eager",
+                     "graph"))
+        graph, ran, want = traced_span(torch, profiling, fn,
+                                       f"{d}/{name}_graph",
+                                       f"{name}, graph replay", det)
+        eager, ran_e, _ = traced_span(torch, profiling, fn,
+                                      f"{d}/{name}_eager",
+                                      f"{name}, eager request", det, True)
+        if len(det.graphs) != n_graphs:
+            fail(f"{name}: a request of seen keys captured a graph")
+        if any(sum(c.values()) for _, _, c in res["graph"]):
+            fail(f"{name}: a graph request called a kernel wrapper: it ran "
+                 f"eagerly")
+        if ran != want or ran["raster_blocks"] < 1:
+            fail(f"{name}: a traced replay ran {ran}, its captures "
+                 f"recorded {want}")
+        outs = {r: [o for _, o, _ in res[r]] for r in res}
+        if name == "detect_sharded_raw":
+            gaps = []
+            for o in outs["graph"] + outs["eager"]:
+                rows = geometry_rows(o)
+                gaps.append(float(np.abs(rows - core).max())
+                            if rows.shape == core.shape and len(core)
+                            else None)
+            if any(g is None or g > 1e-5 for g in gaps):
+                fail(f"{name}: the valid geometry leaves detect_core's "
+                     f"({len(core)} valid hands): gaps {gaps}")
+            if graph["calls"] >= 100:
+                fail(f"{name}: a traced replay took {graph['calls']} host "
+                     f"launch calls")
+            what = (f"{len(core)} valid hands as detect_core, max geometry "
+                    f"gap {max(gaps)}")
+        else:
+            ref = outs["eager"][0].to_host()
+            shares = [selection_share(o.to_host(), ref)
+                      for o in outs["graph"]]
+            for o in outs["graph"] + outs["eager"]:
+                h = o.to_host()
+                if not h.valid.any() or not np.isfinite(
+                        h.score[h.valid]).all():
+                    fail(f"{name}: selected no grasp or a non-finite score")
+            if min(shares) < 0.9:
+                fail(f"{name}: the graph route shares {min(shares):.1%} of "
+                     f"the eager route's selection")
+            what = (f"selected {int(ref.valid.sum())} grasps (graph "
+                    f"{[int(o.valid.sum()) for o in outs['graph']]}), "
+                    f"selection shared with the eager route's by position "
+                    f"{[f'{x:.1%}' for x in shares]}")
+        print(f"parallel (world 1, NCCL), {name} by route: {what}; {first}; "
+              f"ms in turns: graph {[r[0] for r in res['graph']]}, eager "
+              f"{[r[0] for r in res['eager']]}, {unsharded[name][0]} "
+              f"{[r[0] for r in res['unsharded']]}; traced: busy "
+              f"{graph['busy']:.1%} vs {eager['busy']:.1%}, host launch "
+              f"calls {graph['calls']} vs {eager['calls']}, kernel time "
+              f"{graph['kernel_ms']:.2f} vs {eager['kernel_ms']:.2f} ms; "
+              f"raster_blocks run by the traced replay "
+              f"{ran['raster_blocks']} (its keys' captures recorded "
+              f"{want['raster_blocks']}; the traced eager request "
+              f"{ran_e['raster_blocks']}, its wrapper calls a request "
+              f"{[c['raster_blocks'] for _, _, c in res['eager']]})")
+        by_path[f"{name}, world 1 (NCCL), graph route (a traced replay)"] = \
+            all_kernels(ran)
+        by_path[f"{name}, world 1 (NCCL), eager route (wrapper calls, one "
+                f"request)"] = res["eager"][0][2]
+    return by_path
+
+
+def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
+                      cloud, d):
+    """CEM at the default CEMConfig on one seed by three routes: the mesh
+    loop through the detector's programs (CUDA graphs: each round's
+    candidates, draw and scores, the selection), the eager mesh loop
+    (_force_eager) and the fused route (no mesh: one CUDA graph); the graph
+    loop's first request apart (its captures), then graph, eager, fused,
+    fused, eager, graph, then one traced request by each route. Fails
+    unless all three find the same round counts, the two mesh loops the
+    same final count, a grasp with finite scores each, no later request
+    captures or (graph, fused) calls a kernel wrapper, and the traced graph
+    loop runs the raster_blocks kernels its keys' captures recorded.
+    Returns each route's launches (graph loop and fused from traces)."""
+    sis = {"graph": cem.SequentialImportanceSampling(det, CEMConfig(),
+                                                     mesh=mesh),
+           "fused": cem.SequentialImportanceSampling(det, CEMConfig())}
+    sis["eager"] = sis["graph"]          # _force_eager picks the eager loop
+
+    def request(route):
+        def run():
+            s = sis[route]
+            out = s.detect(cloud, generator=seeded(torch, 0), verbose=False)
+            return out.to_host(), list(s.last_round_counts), s.last_num_grasps
+        return run
+    requests = {r: request(r) for r in ("graph", "eager", "fused")}
+    n_graphs = len(det.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    requests["graph"]()
+    first = graph_keys_line(det, n_graphs, time.perf_counter() - t0)
+    turns(torch, img, det, requests, ("fused", "eager"))       # warm-ups
+    n_graphs, n_fused = len(det.graphs), len(sis["fused"].graphs)
+    res = turns(torch, img, det, requests,
+                ("graph", "eager", "fused", "fused", "eager", "graph"))
+    traces = {}
+    for route in requests:
+        traces[route] = traced_span(
+            torch, profiling, requests[route], f"{d}/cem_{route}",
+            f"CEM {route} request", det, route == "eager")
+    fused_key = sis["fused"].graph_key(cloud)
+    want_fused = captured_launches(sis["fused"].graphs[fused_key])
+    rounds = {r: [o[1] for _, o, _ in res[r]] for r in res}
+    finals = {r: [o[2] for _, o, _ in res[r]] for r in res}
+    if len(det.graphs) != n_graphs or len(sis["fused"].graphs) != n_fused:
+        fail("CEM by route: a request of seen keys captured a graph")
+    for r in ("graph", "fused"):
+        if any(sum(c.values()) for _, _, c in res[r]):
+            fail(f"CEM by route: a {r} request called a kernel wrapper")
+    if len({str(x) for r in rounds for x in rounds[r]}) != 1:
+        fail(f"CEM by route: round counts differ: {rounds}")
+    if len(set(finals["graph"] + finals["eager"])) != 1:
+        fail(f"CEM by route: the mesh loops' final counts differ: {finals}")
+    for r in res:
+        for _, (h, _, n), _ in res[r]:
+            if n < 1 or not np.isfinite(h.score[h.valid]).all():
+                fail(f"CEM by route: the {r} route found no grasp or a "
+                     f"non-finite score")
+    _, ran_g, want_g = traces["graph"]
+    if ran_g != want_g or ran_g["raster_blocks"] < 1:
+        fail(f"CEM mesh loop: a traced graph request ran {ran_g}, its keys' "
+             f"captures recorded {want_g}")
+    if traces["fused"][1] != want_fused:
+        fail(f"CEM fused: a traced replay ran {traces['fused'][1]}, its "
+             f"capture recorded {want_fused}")
+    share = [selection_share(o[0], res["eager"][0][1][0])
+             for _, o, _ in res["graph"]]
+    print(f"parallel (world 1, NCCL), CEM by route: round candidates "
+          f"{rounds['graph'][0]} on all three routes; final grasps graph "
+          f"loop {finals['graph']}, eager loop {finals['eager']}, fused "
+          f"{finals['fused']}; the graph loop's selection shared with the "
+          f"eager loop's by position {[f'{x:.1%}' for x in share]}; the "
+          f"graph loop's {first}; ms in turns: graph loop "
+          f"{[r[0] for r in res['graph']]}, eager loop "
+          f"{[r[0] for r in res['eager']]}, fused "
+          f"{[r[0] for r in res['fused']]}; traced busy graph loop "
+          f"{traces['graph'][0]['busy']:.1%}, eager loop "
+          f"{traces['eager'][0]['busy']:.1%}, fused "
+          f"{traces['fused'][0]['busy']:.1%}; host launch calls "
+          f"{traces['graph'][0]['calls']}, {traces['eager'][0]['calls']}, "
+          f"{traces['fused'][0]['calls']}; kernel time "
+          f"{traces['graph'][0]['kernel_ms']:.2f}, "
+          f"{traces['eager'][0]['kernel_ms']:.2f}, "
+          f"{traces['fused'][0]['kernel_ms']:.2f} ms; raster_blocks run "
+          f"by the traced graph loop {ran_g['raster_blocks']} (its keys' "
+          f"captures recorded {want_g['raster_blocks']}), the traced eager "
+          f"loop {traces['eager'][1]['raster_blocks']}, the fused replay "
+          f"{traces['fused'][1]['raster_blocks']}")
+    return {"CEM mesh=, world 1 (NCCL), graph loop (a traced request)":
+                all_kernels(ran_g),
+            "CEM mesh=, world 1 (NCCL), eager loop (wrapper calls, one "
+            "request)": res["eager"][0][2]}
+
+
+def ddp_by_route(torch, profiling, train, lenet, mesh, tmp):
+    """fit's data-parallel step by route at world 1 (NCCL): 40 steps of
+    batch 64 (15 channels) from one start through StepGraphs (the
+    DDP-wrapped LeNet: DDP_EAGER_STEPS eager steps, then one CUDA graph
+    holding the step and its all-reduce) and by the eager DDP train_step,
+    under deterministic cuDNN (losses and parameters within 1e-6 of each
+    tensor's largest entry); then 40 steps a pass in turns (graph, eager,
+    eager, graph; median ms a step by CUDA events), one traced pass of
+    each (host launch calls, busy share); then the data-parallel evaluate
+    (StepGraphs' eval step, the sums all-reduced) against eager eval_step
+    sums over the same 640 held-out rows (loss within 1e-6, accuracy
+    equal)."""
+    rng = np.random.default_rng(13)
+    n = 40
+    x = torch.from_numpy(rng.integers(0, 256, (n * 64, 60, 60, 15),
+                                      dtype=np.uint8)).cuda()
+    y = torch.from_numpy(rng.integers(0, 2, n * 64)).cuda()
+    hx = rng.integers(0, 256, (640, 60, 60, 15), dtype=np.uint8)
+    hy = rng.integers(0, 2, 640).astype(np.int32)
+    params = lenet.init_params(torch.Generator().manual_seed(0), 15)
+    routes = {}
+    for route in ("graph", "eager"):
+        net = lenet.params_from_numpy(params, "cuda")
+        opt = train.make_optimizer(net)
+        steps = train.StepGraphs("cuda")
+        routes[route] = (net, train.data_parallel_model(net, mesh), opt,
+                         steps.train_step if route == "graph"
+                         else train.train_step, steps)
+
+    def run(route, events=None):
+        _, model, opt, step, _ = routes[route]
+        out = []
+        for i in range(0, n * 64, 64):
+            out.append(step(model, opt, x[i:i + 64], y[i:i + 64]))
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        return out
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = {r: [float(l) for l, _ in run(r)] for r in routes}
+        held = Blocks(hx, hy)
+        ev_graph = train.evaluate(routes["graph"][0], held, batch_size=64,
+                                  mesh=mesh)
+        net = routes["graph"][0]
+        sums = [0.0, 0]
+        for i in range(0, 640, 64):
+            s, c = train.eval_step(
+                net, torch.from_numpy(hx[i:i + 64]).cuda(),
+                torch.from_numpy(hy[i:i + 64].astype(np.int64)).cuda(),
+                torch.ones(64, device="cuda"))
+            sums[0] += float(s)
+            sums[1] += int(c)
+        ev_eager = (sums[0] / 640, sums[1] / 640)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    trained = {r: lenet.params_to_numpy(routes[r][0]) for r in routes}
+    loss_gap = float(np.abs(np.subtract(*losses.values())).max())
+    param_gap = max(float(np.abs(trained["graph"][k] - trained["eager"][k])
+                          .max() / np.abs(trained["eager"][k]).max())
+                    for k in trained["eager"])
+    if not (loss_gap <= 1e-6 and param_gap <= 1e-6):
+        fail(f"{n} graph DDP steps leave {n} eager DDP steps: loss gap "
+             f"{loss_gap:.2e}, parameter gap {param_gap:.2e}")
+    if abs(ev_graph[0] - ev_eager[0]) > 1e-6 or ev_graph[1] != ev_eager[1]:
+        fail(f"the data-parallel evaluate {ev_graph} leaves eager eval_step "
+             f"sums {ev_eager}")
+    ms = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        events = []
+        run(route, events)
+        torch.cuda.synchronize()
+        ms[route].append(round(float(np.median(
+            [a.elapsed_time(b) for a, b in zip(events, events[1:])])), 4))
+    traces = {}
+    for route in routes:
+        def steps(route=route):
+            with profiling.span("train_steps"):
+                run(route)
+                torch.cuda.synchronize()
+        traces[route] = read_trace(
+            traced(profiling, steps, os.path.join(tmp, f"ddp_{route}")),
+            ("train_steps",), f"{n} DDP steps, {route} route", 5)
+    (entry,) = routes["graph"][4].graphs.values()
+    print(f"parallel (world 1, NCCL {torch.cuda.nccl.version()}), DDP by "
+          f"route: {n} steps of each from the same parameters under "
+          f"deterministic cuDNN ({train.DDP_EAGER_STEPS} eager steps "
+          f"before the capture): loss gap {loss_gap:.2e}, parameter gap "
+          f"{param_gap:.2e} of each tensor's largest entry; the step's "
+          f"capture {entry.capture_s * 1e3:.2f} ms, pool {entry.pool_bytes} "
+          f"bytes; median ms/step in turns: graph {ms['graph']}, eager "
+          f"{ms['eager']}; traced {n} steps: host launch calls "
+          f"{traces['graph']['calls']} vs {traces['eager']['calls']} "
+          f"({traces['graph']['calls'] / n:.2f} vs "
+          f"{traces['eager']['calls'] / n:.2f} a step), busy "
+          f"{traces['graph']['busy']:.1%} vs {traces['eager']['busy']:.1%}, "
+          f"kernel time {traces['graph']['kernel_ms']:.2f} vs "
+          f"{traces['eager']['kernel_ms']:.2f} ms; data-parallel evaluate "
+          f"(graph) loss {ev_graph[0]:.6f} accuracy {ev_graph[1]:.4f}, "
+          f"eager eval_step sums {ev_eager[0]:.6f} {ev_eager[1]:.4f}")
+
+
+def parallel_path(torch, img, profiling, syn, det, detector, cem, CEMConfig,
+                  lenet, train, tmp):
     """parallel/ on a world of one: an NCCL group over a file store on this
     card (NCCL refuses two ranks on one card). On scene 0 at the default
-    DetectorConfig: detect_sharded_raw's valid geometry against
-    detect_core's on the same samples (same count, 1e-5), sharded_detect_host
-    against detect, CEM with mesh= against CEM without, at the default
-    CEMConfig; then 20 training steps by fit with DistributedDataParallel
-    against 20 plain steps from the same start and batches (every tensor
-    within 1e-6 of its largest entry). Each timed after a warm-up, the
-    unsharded and sharded calls in turns. Returns each sharded path's
-    launch counts."""
+    DetectorConfig: detect_sharded_raw and sharded_detect_host by route
+    (sharded_by_route), CEM with mesh= by route against the fused route at
+    the default CEMConfig (cem_mesh_by_route), then 40 training steps by
+    fit with DistributedDataParallel against 40 plain steps from the same
+    start and batches (every tensor within 1e-6 of its largest entry), and
+    the data-parallel step by route (ddp_by_route). Returns each sharded
+    path's launch counts."""
     import torch.distributed as dist
     from gpd_tpu_torch.parallel import multihost, sharded
     device = multihost.initialize(f"file://{tmp}/nccl_store", 1, 0)
     if dist.get_backend() != "nccl" or device.type != "cuda":
         fail(f"the process group runs {dist.get_backend()} on {device}")
     mesh = sharded.default_mesh()
-    by_path = {}
     try:
         p, cs, vp = scene(syn, 0)
         cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
-        cfg = det.effective_config(cloud)
-        spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
-        cap = det.image_cap(spos.shape[0])
-
-        def core():
-            return detector.detect_core(cloud, spos, smask, det.net,
-                                        seeded(torch, 0), cfg, cap,
-                                        scores_only=True)[0]
-
-        def raw():
-            s_l, m_l = sharded.shard_samples(mesh, spos, smask)
-            return sharded.detect_sharded_raw(
-                sharded.replicate(mesh, cloud), s_l, m_l,
-                sharded.replicate(mesh, det.net), seeded(torch, 0), cfg, cap,
-                mesh)
-
-        def host():
-            return sharded.sharded_detect_host(det, cloud,
-                                               generator=seeded(torch, 0),
-                                               mesh=mesh)
-
-        def plain():
-            return det.detect(cloud, generator=seeded(torch, 0),
-                              verbose=False)
-        for fn in (core, raw, host, plain):
-            fn()                                             # warm-up
-        times = {"detect_core": [], "detect_sharded_raw": [],
-                 "detect": [], "sharded_detect_host": []}
-        for name, fn in (("detect_core", core), ("detect_sharded_raw", raw),
-                         ("detect_sharded_raw", raw), ("detect_core", core),
-                         ("detect", plain), ("sharded_detect_host", host),
-                         ("sharded_detect_host", host), ("detect", plain)):
-            reset_counts(img)
-            out, ms = host_ms(torch, fn)
-            times[name].append(ms)
-            if name in ("detect_sharded_raw", "sharded_detect_host"):
-                by_path[f"{name}, world 1 (NCCL)"] = counts(img)
-            if name == "detect_core":
-                g1 = out
-            elif name == "detect_sharded_raw":
-                gs = out
-            elif name == "sharded_detect_host":
-                sel = out
-        a, b = geometry_rows(g1), geometry_rows(gs)
-        n_raw = by_path["detect_sharded_raw, world 1 (NCCL)"]["raster_blocks"]
-        n_host = by_path["sharded_detect_host, world 1 (NCCL)"][
-            "raster_blocks"]
-        err = float(np.abs(a - b).max()) if a.shape == b.shape else None
-        print(f"parallel (world 1, NCCL): {len(a)} valid hands from "
-              f"detect_core, {len(b)} from detect_sharded_raw, max geometry "
-              f"gap {err}; ms in turns: detect_core "
-              f"{times['detect_core']}, detect_sharded_raw "
-              f"{times['detect_sharded_raw']}; raster_blocks launches "
-              f"{n_raw}")
-        if err is None or err > 1e-5 or not len(a):
-            fail("detect_sharded_raw's geometry is not detect_core's")
-        h = sel.to_host()
-        scores = h.score[h.valid]
-        print(f"parallel: sharded_detect_host selected {int(h.valid.sum())} "
-              f"grasps, top scores {np.round(scores[:5], 3).tolist()}; ms "
-              f"in turns: detect {times['detect']}, sharded_detect_host "
-              f"{times['sharded_detect_host']}; raster_blocks launches "
-              f"{n_host}")
-        if not len(scores) or not np.isfinite(scores).all():
-            fail("sharded_detect_host selected no grasp or a non-finite "
-                 "score")
-
-        sis = {"CEM": cem.SequentialImportanceSampling(det, CEMConfig()),
-               "CEM mesh=": cem.SequentialImportanceSampling(det, CEMConfig(),
-                                                              mesh=mesh)}
-        for s in sis.values():
-            s.detect(cloud, generator=seeded(torch, 0), verbose=False)
-        cem_ms = {name: [] for name in sis}
-        for name in ("CEM", "CEM mesh=", "CEM mesh=", "CEM"):
-            reset_counts(img)
-            out, ms = host_ms(torch, lambda: sis[name].detect(
-                cloud, generator=seeded(torch, 0), verbose=False))
-            cem_ms[name].append(ms)
-            if name == "CEM mesh=":
-                by_path["CEM mesh=, world 1 (NCCL)"] = counts(img)
-                h = out.to_host()
-        s_m, s_p = sis["CEM mesh="], sis["CEM"]
-        # Without a mesh CEM takes the fused route (a captured CUDA graph);
-        # with one, the round loop.
-        print(f"parallel: CEM mesh= (the round loop) round candidates "
-              f"{s_m.last_round_counts} (without, the fused route's CUDA "
-              f"graph: {s_p.last_round_counts}), grasps "
-              f"{s_m.last_num_grasps} (without: {s_p.last_num_grasps}); ms "
-              f"in turns: CEM {cem_ms['CEM']}, CEM mesh= "
-              f"{cem_ms['CEM mesh=']}; raster_blocks launches "
-              f"{by_path['CEM mesh=, world 1 (NCCL)']['raster_blocks']}")
-        if s_m.last_num_grasps < 1 or not np.isfinite(
-                h.score[h.valid]).all():
-            fail("CEM with mesh= found no grasp or a non-finite score")
-        if s_m.last_round_counts != s_p.last_round_counts:
-            fail("CEM with mesh= found other round counts than the fused "
-                 "route on the same seed")
+        traces = os.path.join(tmp, "parallel_traces")
+        by_path = sharded_by_route(torch, img, profiling, det, detector,
+                                   sharded, mesh, cloud, traces)
+        by_path.update(cem_mesh_by_route(torch, img, profiling, det, cem,
+                                         CEMConfig, mesh, cloud, traces))
 
         rng = np.random.default_rng(12)
-        data = Blocks(rng.integers(0, 256, (20 * 64, 60, 60, 15),
+        data = Blocks(rng.integers(0, 256, (40 * 64, 60, 60, 15),
                                    dtype=np.uint8),
-                      rng.integers(0, 2, 20 * 64))
+                      rng.integers(0, 2, 40 * 64))
 
         def gap(a, b):
             return max(float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
@@ -2261,17 +2544,20 @@ def parallel_path(torch, img, syn, det, detector, cem, CEMConfig, lenet,
             if dp:
                 by_path["fit data_parallel, world 1 (NCCL)"] = counts(img)
         g_dp = max(gap(d, fits[True, False][0]) for d in fits[True, True])
-        print(f"parallel: 20 training steps of fit with "
-              f"DistributedDataParallel against 20 plain steps from the "
-              f"same start and batches, deterministic cuDNN: max parameter "
-              f"gap {g_dp:.2e} of each tensor's largest entry (plain vs "
-              f"plain {gap(*fits[True, False]):.2e}; with cuDNN's default "
+        print(f"parallel: 40 training steps of fit with "
+              f"DistributedDataParallel (through StepGraphs: "
+              f"{train.DDP_EAGER_STEPS} eager steps, then the captured "
+              f"step) against 40 plain steps from the same start and "
+              f"batches, deterministic cuDNN: max parameter gap "
+              f"{g_dp:.2e} of each tensor's largest entry (plain vs plain "
+              f"{gap(*fits[True, False]):.2e}; with cuDNN's default "
               f"algorithms plain vs plain {gap(*fits[False, False]):.2e}); "
               f"median ms/step in turns: plain {step_ms[True, False]}, DDP "
               f"{step_ms[True, True]} (default cuDNN, plain: "
               f"{step_ms[False, False]})")
         if not g_dp <= 1e-6:
             fail("DDP training steps differ from plain ones")
+        ddp_by_route(torch, profiling, train, lenet, mesh, tmp)
     finally:
         dist.destroy_process_group()
     return by_path
@@ -2646,8 +2932,8 @@ def main():
     from gpd_tpu_torch.ops import candidates as cand
     from gpd_tpu_torch.ops import images as img
 
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+          f"{torch.cuda.nccl.version()}, {torch.cuda.get_device_name(0)}")
 
     # The C ABI compiles against this Python's headers; without them the C
     # ABI phase prints one line instead of running.
@@ -2693,8 +2979,9 @@ def main():
                "CEM loop, 15 channels (8 requests)": cem_launches["loop"],
                "staged, 15 channels": staged_path(torch, img, syn, det)}
     with tempfile.TemporaryDirectory() as tmp:
-        by_path.update(parallel_path(torch, img, syn, det, detector, cem,
-                                     CEMConfig, lenet, train, tmp))
+        by_path.update(parallel_path(torch, img, profiling, syn, det,
+                                     detector, cem, CEMConfig, lenet, train,
+                                     tmp))
         by_path.update(c_abi_path(torch, img, syn, api, capi, tmp,
                                   why_no_c_abi))
         by_path["test_grasp_image, 15 channels"] = grasp_image_path(

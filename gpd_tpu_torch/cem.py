@@ -25,14 +25,21 @@ Two routes, as in gpd_tpu (cem.py:231-361), through one body,
     and the final count are read once, after it.
   - With ``mesh=`` (a ``parallel.sharded.Mesh``; every rank calls
     ``detect``), or with the test hook ``_force_loop``, gpd_tpu's Python
-    round loop (cem.py:255-361): the same body with host reads, each
-    scoring pass reading its valid count. With a mesh each round's
-    candidates come from ``candidates_sharded_raw`` on the rank's shard of
-    the round's samples, the mixture centers accumulate from the gathered
-    round in gpd_tpu's layout (each round's slots padded to a multiple of
-    the mesh size, cem.py:281-289; MAX_OF_GAUSSIANS picks centers by slot),
-    and each round is scored by ``score_sharded_raw``; every rank returns
-    the same grasps.
+    round loop (cem.py:255-361), the same body. Without a mesh it reads
+    each scoring pass's valid count. With a mesh each round's candidates
+    come from ``candidates_sharded_raw`` on the rank's shard of the round's
+    samples, the mixture centers accumulate from the gathered round in
+    gpd_tpu's layout (each round's slots padded to a multiple of the mesh
+    size, cem.py:281-289; MAX_OF_GAUSSIANS picks centers by slot), and each
+    round is scored by ``score_sharded_raw``; every rank returns the same
+    grasps. The mesh loop runs, as gpd_tpu's does, through programs only:
+    each round's candidates, each round's draw (``_draw_round``), each
+    scoring pass and the selection are programs of the detector
+    (``parallel.sharded``'s ``owner``; CUDA graphs on its card), with the
+    gathers and the prune between them, and the round counts and the final
+    count are read once, after the selection. Under the detector's test
+    hook ``_force_eager`` the mesh loop takes the sharded functions' eager
+    bodies, which read their counts as they go.
 
 Both routes draw from ``ops/draws.py`` in one order, gpd_tpu's key order
 (cem.py:157-170): round 0's subsample, each round's ``cem_round``, then
@@ -59,7 +66,7 @@ from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.detector import (CapturedGraph, GraspDetector,
                                     candidates_stage, clone_tree,
-                                    score_candidates, select_and_cluster)
+                                    score_candidates)
 from gpd_tpu_torch.net.lenet import LeNet
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops import preprocess as pp
@@ -79,11 +86,35 @@ def _merge_pruned(scored: Sequence[Grasps], min_score: float) -> Grasps:
         merged.score > min_score))
 
 
+def _draw_round(generator: torch.Generator, centers: torch.Tensor,
+                cmask: torch.Tensor, cloud: CloudArrays, sigma: float,
+                workspace: tuple, method: int, n_gauss: int, n_rand: int,
+                owner: Optional[GraspDetector] = None) -> torch.Tensor:
+    """One round's sample positions, ``draws.cem_round``: gpd_tpu's
+    ``_draw_round`` (cem.py:42). With an ``owner``, its program, keyed by the
+    device, the cloud's capacity, the center buffer's size and the draw's
+    static arguments; the centers and their mask are copied in, the draws
+    come from ``generator``'s state through the graph's own generator
+    (``GraspDetector._run_drawing``), and the positions come back as a
+    copy, which the rounds keep past the next replay."""
+    def program(g, c, m, points, pmask):
+        return draws.cem_round(g, c, m, points, pmask, sigma, workspace,
+                               method, n_gauss, n_rand)
+    inputs = (centers, cmask, cloud.points, cloud.mask)
+    if owner is None:
+        return program(generator, *inputs)
+    key = ("cem_round", cloud.device, cloud.capacity, centers.shape[0],
+           method, n_gauss, n_rand, sigma, workspace)
+    return owner._run_drawing(key, program, inputs, generator).clone()
+
+
 def _cem_program(cloud: CloudArrays, net: LeNet, generator: torch.Generator,
                  cfg: DetectorConfig, n_init: int, n_iter: int, n_gauss: int,
                  n_rand: int, method: int, image_cap: int, sigma: float,
                  min_score: float, mesh: Optional[sharded.Mesh] = None,
-                 host_reads: bool = False) -> Tuple[Grasps, torch.Tensor]:
+                 host_reads: bool = False,
+                 owner: Optional[GraspDetector] = None
+                 ) -> Tuple[Grasps, torch.Tensor]:
     """The whole CEM request, the counterpart of gpd_tpu's ``_cem_fused``
     (gpd_tpu/cem.py:132-195) and of its round loop (:255-361): round 0 at
     uniform samples (.cpp:71-78), ``n_iter`` importance-sampling rounds of
@@ -100,7 +131,8 @@ def _cem_program(cloud: CloudArrays, net: LeNet, generator: torch.Generator,
     past its live count) and its three profiler spans; with ``mesh`` each
     round's candidates and scores come from the sharded stages, and a
     round's slots are its samples padded to a multiple of the mesh size
-    (cem.py:281-289)."""
+    (cem.py:281-289); with an ``owner`` too, those stages, each round's
+    draw and the selection run as the owner's programs."""
     n_dev = 1 if mesh is None else mesh.size
     M = cfg.num_orientations * len(cfg.hand_axes)
     per = n_gauss + n_rand
@@ -124,7 +156,8 @@ def _cem_program(cloud: CloudArrays, net: LeNet, generator: torch.Generator,
                                  host_reads=host_reads)
         else:
             spos, smask = sharded.shard_samples(mesh, spos, smask)
-            g = sharded.candidates_sharded_raw(cloud, spos, smask, cfg, mesh)
+            g = sharded.candidates_sharded_raw(cloud, spos, smask, cfg, mesh,
+                                               owner=owner)
         ofs = sum(r[0].capacity for r in rounds)
         centers[ofs:ofs + g.capacity] = g.sample
         cmask[ofs:ofs + g.capacity] = g.valid
@@ -135,9 +168,9 @@ def _cem_program(cloud: CloudArrays, net: LeNet, generator: torch.Generator,
         run_round(torch.where(valid[:, None], cloud.points[idx], 1e6), valid)
         smask = torch.ones(per, dtype=torch.bool, device=cloud.device)
         for _ in range(n_iter):
-            run_round(draws.cem_round(generator, centers, cmask, cloud.points,
-                                      cloud.mask, sigma, tuple(cfg.workspace),
-                                      method, n_gauss, n_rand), smask)
+            run_round(_draw_round(generator, centers, cmask, cloud, sigma,
+                                  tuple(cfg.workspace), method, n_gauss,
+                                  n_rand, owner), smask)
     with phase("cem_scoring"):
         if mesh is None:
             scored = [score_candidates(cloud, g, spos, sm, net, generator,
@@ -147,11 +180,11 @@ def _cem_program(cloud: CloudArrays, net: LeNet, generator: torch.Generator,
         else:
             scored = [sharded.score_sharded_raw(cloud, g, spos, sm, net,
                                                 generator, cfg, image_cap,
-                                                mesh)
+                                                mesh, owner=owner)
                       for g, spos, sm in rounds]
         merged = _merge_pruned(scored, min_score)
     with phase("select_and_cluster"):
-        out = select_and_cluster(merged, cfg)
+        out = sharded.select_merged(merged, cfg, owner)
     return out, torch.stack([g.valid.sum() for g, _, _ in rounds])
 
 
@@ -264,13 +297,18 @@ class SequentialImportanceSampling:
     def _detect_loop(self, cloud: CloudArrays, gen: torch.Generator
                      ) -> Tuple[Grasps, List[int], int]:
         """gpd_tpu's Python round loop (cem.py:255-361), sharded with a
-        mesh: ``_cem_program`` with host reads and its phase spans."""
-        net, n_dev = self.detector.net, 1
+        mesh: ``_cem_program`` with its phase spans, host reads without a
+        mesh, the detector's programs with one (the eager bodies under its
+        ``_force_eager``); then one read of the counts."""
+        det, owner, n_dev = self.detector, None, 1
+        net = det.net
         if self.mesh is not None:
             cloud = sharded.replicate(self.mesh, cloud)
             net = sharded.replicate(self.mesh, net)
             n_dev = self.mesh.size
+            owner = None if det._force_eager else det
         out, counts = _cem_program(cloud, net, gen,
                                    *self.program_args(cloud, n_dev),
-                                   mesh=self.mesh, host_reads=True)
+                                   mesh=self.mesh, host_reads=True,
+                                   owner=owner)
         return (out, *_read_counts(out, counts))

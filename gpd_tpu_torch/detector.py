@@ -915,9 +915,8 @@ class GraspDetector:
         the samples (they are then copied into A's inputs); B's adds the
         live (sample blocks, image chunks), which the read gives, and
         ``"images"`` if it keeps them. B reads A's outputs in place, and
-        binds the net it was captured with. A and B draw from one generator
-        registered with both graphs: the caller's state is copied in before
-        A and back out after B, so the request draws what the eager route
+        binds the net it was captured with. A and B draw through
+        ``_run_drawing``, so the request draws what the eager route
         draws. On the CPU the same parts run eagerly. A capture that fails
         raises; nothing falls back to the eager route.
 
@@ -934,22 +933,13 @@ class GraspDetector:
         net = self.net
         key = (cloud.device, cloud.capacity, cloud.num_cameras, id(net), cfg,
                S, given)
-        private = gen
-        if self.device.type == "cuda":
-            if gen.device.type != "cuda":
-                raise ValueError(f"detect's programs draw on {self.device}; "
-                                 f"the generator is on {gen.device}")
-            entry = self.graphs.get(("candidates",) + key)
-            private = (entry.gen if entry is not None
-                       else torch.Generator(device=self.device))
-            private.set_state(gen.get_state())
 
         def part_a(g, cloud, spos=None, smask=None):
             # A hands its cloud on: on a card, B reads the graph's copy.
             return (cloud,) + candidates_program(cloud, spos, smask, g, cfg)
 
-        cloud_a, grasps, spos, smask, counts = self._run(
-            ("candidates",) + key, part_a, inputs, private)
+        cloud_a, grasps, spos, smask, counts = self._run_drawing(
+            ("candidates",) + key, part_a, inputs, gen)
         counts = counts.tolist()
         n_valid, n_active = counts[:2]
         # The live blocks and chunks, as counts at their ends.
@@ -958,15 +948,35 @@ class GraspDetector:
         key = key + live
         out = (self._images_buffer(cfg, max(1, -(-grasps.capacity // cap))
                                    * cap) if images else None)
-        scored, imgs = self._run(
+        scored, imgs = self._run_drawing(
             ("score",) + key + (("images",) if images else ()),
             lambda g: score_candidates(cloud_a, grasps, spos, smask, net, g,
                                        cfg, cap, scores_only=not images,
                                        live=live, images_out=out),
-            generator=private)
-        if private is not gen:
-            gen.set_state(private.get_state())
+            (), gen)
         return scored, imgs, counts, key
+
+    def _run_drawing(self, key: tuple, program, inputs: tuple,
+                     gen: torch.Generator):
+        """``_run`` of a program that draws from ``gen``. On a card the
+        graph of ``key`` draws from a generator of its own, registered with
+        it at its capture: ``gen``'s state is copied into that generator
+        before the replay and back out after it, so a replay draws what an
+        eager run from ``gen`` draws and leaves ``gen`` where that run
+        would. A generator on another device than the card is refused."""
+        if self.device.type != "cuda":
+            return self._run(key, program, inputs, gen)
+        if gen.device.type != "cuda":
+            raise ValueError(f"the detector's programs draw on "
+                             f"{self.device}; the generator is on "
+                             f"{gen.device}")
+        entry = self.graphs.get(key)
+        private = (entry.gen if entry is not None
+                   else torch.Generator(device=self.device))
+        private.set_state(gen.get_state())
+        out = self._run(key, program, inputs, private)
+        gen.set_state(private.get_state())
+        return out
 
     def _images_buffer(self, cfg: DetectorConfig, rows: int) -> torch.Tensor:
         """The (rows, size, size, C) uint8 tensor a B with images writes

@@ -20,12 +20,16 @@ Without a process group ``data_parallel`` changes nothing, as gpd_tpu's
 with one device.
 
 gpd_tpu jits ``train_step`` (with donation) and ``eval_step``
-(train.py:48-65). Here ``StepGraphs`` is their counterpart: on a card one
-CUDA graph per (step, batch shape, net, optimizer), captured at the first
-step of its key and replayed, the batch gathered outside the graph and
-copied into its inputs; on the CPU the same bodies eagerly. ``fit`` and
-``evaluate`` step through it without a process group; with one (DDP's
-reducer hooks and all-reduces) they keep the eager step.
+(train.py:48-65); under a mesh its batches are sharded over ``dp``, so the
+gradient reduction is inside the program. Here ``StepGraphs`` is their
+counterpart: on a card one CUDA graph per (step, batch shape, net,
+optimizer), captured at the first step of its key and replayed, the batch
+gathered outside the graph and copied into its inputs; on the CPU the same
+bodies eagerly. ``fit`` and ``evaluate`` step through it with and without a
+process group. With one, ``fit``'s graph holds the whole DDP step, its
+gradient all-reduce included (PyTorch's recipe for capturing a network
+under DDP: the wrapper built on a side stream, ``DDP_EAGER_STEPS`` eager
+steps before the capture); under gloo, on the CPU, it stays eager.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ from gpd_tpu_torch import resolve_device
 from gpd_tpu_torch.detector import CapturedGraph, clone_tree
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.parallel import sharded
+
+# DDP's eager steps before its step is captured: it rebuilds its gradient
+# buckets after its first iterations, and PyTorch's recipe for capturing a
+# network under DDP asks for at least 11.
+DDP_EAGER_STEPS = 11
 
 
 def make_optimizer(net: lenet.LeNet, lr: float = 1e-3,
@@ -107,7 +116,13 @@ class StepGraphs:
     capture sets the gradients to None first (``train_step``'s
     ``zero_grad``), and the graph's backward writes them into the pool,
     PyTorch's whole-network capture recipe; Adam's state, made by the
-    warm-up, stays where the graph updates it."""
+    warm-up, stays where the graph updates it.
+
+    A net wrapped in ``DistributedDataParallel`` (built on a side stream,
+    as ``fit`` builds it) takes ``DDP_EAGER_STEPS`` eager steps first, the
+    capture's warm-up the last of them, each a real step as above; the
+    graph then holds the backward's all-reduces, which every rank replays
+    in the same order."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -115,11 +130,16 @@ class StepGraphs:
         self.pool = None
         # Weak references to the nets of the eval graphs, by key.
         self._nets = {}
+        # The eager steps taken so far by key, for keys that take some
+        # before their capture.
+        self._eager = {}
 
-    def _step(self, key: tuple, program, inputs: tuple, net_ref=None):
+    def _step(self, key: tuple, program, inputs: tuple, net_ref=None,
+              eager_steps: int = 1):
         """``program(*inputs)``: eagerly on the CPU; on a card its outputs,
-        copied, from a replay of its graph, or from the capture's warm-up
-        if ``key`` (with the inputs' shapes and dtypes) is new. A graph
+        copied, from a replay of its graph, or, while ``key`` (with the
+        inputs' shapes and dtypes) has taken fewer than ``eager_steps``
+        steps, eagerly, the last of them the capture's warm-up. A graph
         whose program reaches its net through ``net_ref``, a weak
         reference, is captured anew once that net is gone: another net may
         then have taken its identity."""
@@ -129,6 +149,10 @@ class StepGraphs:
         ref = self._nets.get(key)
         if key in self.graphs and (ref is None or ref() is not None):
             return clone_tree(self.graphs[key].replay(*inputs))
+        done = self._eager.get(key, 0)
+        if done + 1 < eager_steps:
+            self._eager[key] = done + 1
+            return program(*inputs)
         if net_ref is not None:
             self._nets[key] = net_ref
         if self.pool is None:
@@ -145,9 +169,11 @@ class StepGraphs:
     def train_step(self, net, opt, images_u8: torch.Tensor,
                    labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step (``train_step``): (loss, accuracy)."""
+        ddp = isinstance(net, torch.nn.parallel.DistributedDataParallel)
         return self._step(("train", id(net), id(opt)),
                           lambda x, y: train_step(net, opt, x, y),
-                          (images_u8, labels))
+                          (images_u8, labels),
+                          eager_steps=DDP_EAGER_STEPS if ddp else 1)
 
     def eval_step(self, net, images_u8: torch.Tensor, labels: torch.Tensor,
                   weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,21 +237,38 @@ def _dp_batch(batch_size: int, mesh: Optional[sharded.Mesh]) -> int:
     return batch_size - batch_size % mesh.size
 
 
+def data_parallel_model(net: lenet.LeNet, mesh: sharded.Mesh
+                        ) -> torch.nn.parallel.DistributedDataParallel:
+    """``net`` in ``DistributedDataParallel`` over the mesh's group, without
+    unused-parameter search. On a card it is built on a side stream, as
+    PyTorch's recipe for capturing a network under DDP asks. The LeNet has
+    no buffers, so DDP's buffer broadcast sends nothing."""
+    cuda = mesh.device.type == "cuda"
+    side = torch.cuda.Stream(mesh.device) if cuda else None
+    if cuda:
+        side.wait_stream(torch.cuda.current_stream(mesh.device))
+    with torch.cuda.stream(side):        # no-op for None, on the CPU
+        model = torch.nn.parallel.DistributedDataParallel(
+            net, device_ids=[mesh.device.index] if cuda else None,
+            process_group=mesh.group)
+    if cuda:
+        torch.cuda.current_stream(mesh.device).wait_stream(side)
+    return model
+
+
 def evaluate(net: lenet.LeNet, dataset, batch_size: int = 256,
              mesh: Optional[sharded.Mesh] = None,
              steps: Optional[StepGraphs] = None) -> Tuple[float, float]:
     """(mean loss, accuracy) over ``dataset.blocks()`` (network.py:66-88),
-    the tail batch padded with zeros and weighted out. Without a ``mesh``
-    each batch is a step of ``steps`` (by default the ``StepGraphs`` kept
-    with the net, ``net_steps``: on a card one graph per padded batch
-    shape, captured at the net's first evaluation). With a ``mesh`` (every rank
-    calling, on the same data), each rank evaluates its slice of every
-    batch eagerly and the sums are all-reduced: every rank returns the
-    whole set's numbers."""
+    the tail batch padded with zeros and weighted out. Each batch is a step
+    of ``steps`` (by default the ``StepGraphs`` kept with the net,
+    ``net_steps``: on a card one graph per padded batch shape, captured at
+    the net's first evaluation). With a ``mesh`` (every rank calling, on
+    the same data), each rank evaluates its slice of every batch and the
+    sums are all-reduced after the loop: every rank returns the whole
+    set's numbers."""
     device = net.conv1.weight.device
-    step = eval_step
-    if mesh is None:
-        step = (steps or net_steps(net)).eval_step
+    step = (steps or net_steps(net)).eval_step
     batch_size = _dp_batch(batch_size, mesh)
     per = batch_size // (1 if mesh is None else mesh.size)
     mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
@@ -277,8 +320,9 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
 
     ``data_parallel`` with an initialized process group: every rank calls
     ``fit`` on the same data, the device is the rank's (``device`` must name
-    its type), steps run eagerly through DDP, and only rank 0 writes
-    checkpoints and the log."""
+    its type), steps go through DDP (built on a side stream on a card, so
+    that its step can be captured whole, all-reduce included), and only
+    rank 0 writes checkpoints and the log."""
     mesh = _dp_mesh(data_parallel)
     device = resolve_device(device)
     if mesh is not None:
@@ -290,12 +334,9 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
         torch.Generator().manual_seed(seed), num_channels), device)
     model = net
     if mesh is not None:
-        model = torch.nn.parallel.DistributedDataParallel(
-            net, device_ids=[device.index] if device.type == "cuda" else None,
-            process_group=mesh.group)
+        model = data_parallel_model(net, mesh)
     opt = make_optimizer(net, lr, weight_decay)
     steps = StepGraphs(device)
-    step_fn = steps.train_step if mesh is None else train_step
     batch_size = _dp_batch(batch_size, mesh)
     per = batch_size if mesh is None else batch_size // mesh.size
     mine = slice(0, per) if mesh is None else slice(mesh.rank * per,
@@ -320,7 +361,8 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
             labels = torch.from_numpy(labels.astype(np.int64)).to(device)
             for i in range(0, len(perm) - batch_size + 1, batch_size):
                 sel = perm[i:i + batch_size][mine]
-                loss, acc = step_fn(model, opt, images[sel], labels[sel])
+                loss, acc = steps.train_step(model, opt, images[sel],
+                                             labels[sel])
                 step += 1
                 if on_step is not None:
                     on_step(step, loss, acc)

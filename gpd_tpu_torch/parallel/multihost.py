@@ -30,7 +30,13 @@ def initialize(coordinator_address: Optional[str] = None,
     init URL (``tcp://...``, ``file://...``). ``device`` is CUDA unless the
     caller names the CPU, as for every entry point of the port; on CUDA the
     process takes card LOCAL_RANK (else its rank modulo the visible cards)
-    and NCCL, on the CPU gloo. Returns the process's device."""
+    and NCCL, on the CPU gloo. Returns the process's device.
+
+    NCCL's async error handling stays as the environment sets it: PyTorch's
+    CUDA-graph notes turn it off to capture a DDP step whole, but the
+    card's torch (2.11 with NCCL 2.28.9) captures and replays ``fit``'s DDP
+    step with it on (its default), and on it keeps aborting the
+    collectives of a lost rank rather than leaving them hung."""
     env = os.environ
     if coordinator_address is None:
         coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"

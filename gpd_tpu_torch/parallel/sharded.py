@@ -20,6 +20,21 @@ the rank split, as in gpd_tpu.
 
 Collectives: ``torch.distributed`` all-gathers (bool fields as uint8) and
 broadcasts, NCCL between cards, gloo between CPU processes.
+
+Programs. gpd_tpu jits each sharded function, so each rank's part runs as
+device programs and reads nothing back to the host. Given an ``owner``, the
+``GraspDetector`` whose ``net`` they score with, the functions here run
+each rank's part as the owner's programs (``GraspDetector._run``): on its
+card CUDA graphs per static key, in its graphs and its one pool beside
+``detect``'s, captured at a key's first call; on the CPU the same programs
+eagerly. ``detect_sharded_raw`` is ``detect``'s A, the read of A's counts
+and B on the rank's samples; ``candidates_sharded_raw`` and
+``score_sharded_raw`` are one program each, with no read; the selection is
+one program on the gathered batch. The collectives (``replicate``, the
+gathers) and ``rank_generator``'s read stay outside the programs, and every
+batch gathered from a program's outputs is a copy, which the next replay
+leaves alone. Without an owner each function runs its eager body, which
+reads its block and chunk counts back to the host.
 """
 
 from __future__ import annotations
@@ -32,8 +47,9 @@ import torch.distributed as dist
 
 from gpd_tpu_torch.config import DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
-from gpd_tpu_torch.detector import (candidates_stage, detect_core,
-                                    score_candidates, select_and_cluster)
+from gpd_tpu_torch.detector import (candidates_stage, clone_tree,
+                                    detect_core, score_candidates,
+                                    select_and_cluster)
 from gpd_tpu_torch.net import lenet
 
 
@@ -127,11 +143,12 @@ def _gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 
 def gather_grasps(mesh: Mesh, grasps: Grasps) -> Grasps:
-    """The ranks' grasp batches concatenated in rank order, on every rank:
-    one all-gather per wire dtype (float32, int64, uint8), each of the
-    fields of that dtype side by side."""
+    """The ranks' grasp batches concatenated in rank order, on every rank,
+    in new tensors: one all-gather per wire dtype (float32, int64, uint8),
+    each of the fields of that dtype side by side; a copy without a
+    process group."""
     if mesh.group is None:
-        return grasps
+        return clone_tree(grasps)
     by_dtype = {}
     for f in dataclasses.fields(Grasps):
         t = getattr(grasps, f.name)
@@ -157,54 +174,109 @@ def rank_generator(mesh: Mesh, generator: torch.Generator) -> torch.Generator:
         seed + mesh.rank)
 
 
+def _check_owner(owner, net: lenet.LeNet) -> None:
+    """The owner's programs score with its own net: a graph keyed by another
+    net's identity would keep that net alive, out of reach of the owner's
+    ``net`` setter, which drops the graphs of the net it replaces."""
+    if net is not owner.net:
+        raise ValueError("the owner's programs score with owner.net; "
+                         "another net was given")
+
+
 def detect_sharded_raw(cloud: CloudArrays, sample_pos: torch.Tensor,
                        sample_mask: torch.Tensor, net: lenet.LeNet,
                        generator: torch.Generator, cfg: DetectorConfig,
-                       image_cap: int, mesh: Mesh) -> Grasps:
+                       image_cap: int, mesh: Mesh, *, owner=None) -> Grasps:
     """Candidate-parallel ``detect_core`` without selection: this rank's
     sample shard (``shard_samples``) scored, then the gathered batch, for a
-    caller's own outer loop."""
-    g, _ = detect_core(cloud, sample_pos, sample_mask, net,
-                       rank_generator(mesh, generator), cfg, image_cap,
-                       scores_only=True)
+    caller's own outer loop. With an ``owner``, the rank's part is
+    ``detect``'s programs (``GraspDetector._scored_programs``): A on the
+    given samples, one read of A's counts, B over the live blocks and
+    chunks; ``image_cap`` must be the owner's for the shard."""
+    rank_gen = rank_generator(mesh, generator)
+    if owner is None:
+        g, _ = detect_core(cloud, sample_pos, sample_mask, net, rank_gen,
+                           cfg, image_cap, scores_only=True)
+        return gather_grasps(mesh, g)
+    _check_owner(owner, net)
+    if image_cap != owner.image_cap(sample_pos.shape[0]):
+        raise ValueError(f"the owner's programs score chunks of "
+                         f"{owner.image_cap(sample_pos.shape[0])} hands for "
+                         f"{sample_pos.shape[0]} samples, not {image_cap}")
+    g, _, _, _ = owner._scored_programs(cloud, sample_pos, sample_mask,
+                                        rank_gen, cfg)
     return gather_grasps(mesh, g)
+
+
+def select_merged(grasps: Grasps, cfg: DetectorConfig,
+                  owner=None) -> Grasps:
+    """``select_and_cluster`` of a gathered batch; with an ``owner``, a copy
+    of its program's outputs, the batch copied into the program's inputs.
+    Its key holds what the program's shapes follow from: the device, the
+    batch's capacity and the config."""
+    if owner is None:
+        return select_and_cluster(grasps, cfg)
+    key = ("sharded_select", grasps.valid.device, grasps.capacity, cfg)
+    return clone_tree(owner._run(
+        key, lambda _, g: select_and_cluster(g, cfg), (grasps,)))
 
 
 def sharded_detect(cloud: CloudArrays, sample_pos: torch.Tensor,
                    sample_mask: torch.Tensor, net: lenet.LeNet,
                    generator: torch.Generator, cfg: DetectorConfig,
-                   image_cap: int, mesh: Mesh) -> Grasps:
+                   image_cap: int, mesh: Mesh, *, owner=None) -> Grasps:
     """Candidate-parallel detection: ``detect_sharded_raw``, then one global
-    selection and clustering over the merged set (the same on every
-    rank)."""
-    return select_and_cluster(detect_sharded_raw(
-        cloud, sample_pos, sample_mask, net, generator, cfg, image_cap, mesh),
-        cfg)
+    selection and clustering over the merged set (the same on every rank;
+    ``select_merged``)."""
+    return select_merged(detect_sharded_raw(
+        cloud, sample_pos, sample_mask, net, generator, cfg, image_cap, mesh,
+        owner=owner), cfg, owner)
 
 
 def candidates_sharded_raw(cloud: CloudArrays, sample_pos: torch.Tensor,
                            sample_mask: torch.Tensor, cfg: DetectorConfig,
-                           mesh: Mesh) -> Grasps:
+                           mesh: Mesh, *, owner=None) -> Grasps:
     """Candidate-parallel ``candidates_stage`` (no descriptors, no CNN), the
     per-round work of CEM: the gathered batch, whose rank-major blocks give
-    each rank back its own candidates."""
-    return gather_grasps(mesh, candidates_stage(cloud, sample_pos,
-                                                sample_mask, cfg))
+    each rank back its own candidates. With an ``owner``, one program that
+    reads nothing back (``host_reads=False``) and draws nothing, keyed by
+    the device, the cloud's capacity and camera count, the config and the
+    shard's sample count."""
+    if owner is None:
+        g = candidates_stage(cloud, sample_pos, sample_mask, cfg)
+    else:
+        key = ("sharded_candidates", cloud.device, cloud.capacity,
+               cloud.num_cameras, cfg, sample_pos.shape[0])
+        g = owner._run(key, lambda _, c, p, m: candidates_stage(
+            c, p, m, cfg, host_reads=False), (cloud, sample_pos, sample_mask))
+    return gather_grasps(mesh, g)
 
 
 def score_sharded_raw(cloud: CloudArrays, grasps: Grasps,
                       sample_pos: torch.Tensor, sample_mask: torch.Tensor,
                       net: lenet.LeNet, generator: torch.Generator,
                       cfg: DetectorConfig, image_cap: int,
-                      mesh: Mesh) -> Grasps:
+                      mesh: Mesh, *, owner=None) -> Grasps:
     """Candidate-parallel ``score_candidates`` of a batch from
     ``candidates_sharded_raw`` on the same sample shards: each rank scores
-    its own block, then the gathered scored batch."""
+    its own block, then the gathered scored batch. With an ``owner``, one
+    program that runs every block and chunk and reads nothing back
+    (``host_reads=False``, as gpd_tpu's device loop), keyed as
+    ``candidates_sharded_raw``'s and by the net and ``image_cap``; it
+    draws from this rank's generator (``rank_generator``)."""
     per = grasps.capacity // mesh.size
     mine = grasps.take(slice(mesh.rank * per, (mesh.rank + 1) * per))
-    g, _ = score_candidates(cloud, mine, sample_pos, sample_mask, net,
-                            rank_generator(mesh, generator), cfg, image_cap,
-                            scores_only=True)
+    rank_gen = rank_generator(mesh, generator)
+    if owner is None:
+        g, _ = score_candidates(cloud, mine, sample_pos, sample_mask, net,
+                                rank_gen, cfg, image_cap, scores_only=True)
+        return gather_grasps(mesh, g)
+    _check_owner(owner, net)
+    key = ("sharded_score", cloud.device, cloud.capacity, cloud.num_cameras,
+           cfg, sample_pos.shape[0], id(net), image_cap)
+    g, _ = owner._run_drawing(key, lambda r, c, b, p, m: score_candidates(
+        c, b, p, m, net, r, cfg, image_cap, host_reads=False),
+        (cloud, mine, sample_pos, sample_mask), rank_gen)
     return gather_grasps(mesh, g)
 
 
@@ -216,7 +288,9 @@ def sharded_detect_host(detector, cloud: CloudArrays,
     """``sharded_detect`` for a ``GraspDetector``: rank 0's cloud and
     weights replicated, the samples (drawn as ``detect`` draws them when
     not given) sharded, image chunks of ``detector.image_cap`` of a rank's
-    shard, and the detector's ``effective_config`` as ``detect`` uses it."""
+    shard, and the detector's ``effective_config`` as ``detect`` uses it.
+    The detector owns the programs, but under its test hook
+    ``_force_eager``, which takes the eager bodies."""
     mesh = mesh or default_mesh()
     gen = detector._generator(generator)
     cloud = replicate(mesh, cloud)
@@ -226,4 +300,5 @@ def sharded_detect_host(detector, cloud: CloudArrays,
     spos, smask = shard_samples(mesh, sample_pos, sample_mask)
     return sharded_detect(cloud, spos, smask, detector.net, gen,
                           detector.effective_config(cloud),
-                          detector.image_cap(spos.shape[0]), mesh)
+                          detector.image_cap(spos.shape[0]), mesh,
+                          owner=None if detector._force_eager else detector)

@@ -13,7 +13,8 @@ while the two ranks run, and the tests hold them against each other:
   - sharded detection (the cylinder and small config of
     tests/test_sharding.py): the same valid geometry (position,
     orientation, width; 1e-5) as the port's detect_core and gpd_tpu's
-    8-device detect_sharded_raw, the same merged batch on both ranks;
+    8-device detect_sharded_raw, the same merged batch on both ranks, and
+    through the detector's programs (``owner=``) the eager route's;
   - sharded CEM (tests/test_cem.py's cylinder) with gpd_tpu's draws
     replayed through ops/draws.py: per-round counts and candidates equal to
     the one-rank port's and gpd_tpu's mesh=default_mesh(2) run, mixture
@@ -121,8 +122,8 @@ def replayed_cem(replay, record):
         record["cmask"].append(cmask.numpy().copy())
         return torch.tensor(next(positions))
 
-    def candidates(*args):
-        g = orig(*args)
+    def candidates(*args, **kwargs):
+        g = orig(*args, **kwargs)
         record["candidates"].append(host(g))
         return g
 
@@ -212,8 +213,16 @@ def worker(store, rank, world, replay_path, out_dir):
         sharded.replicate(mesh, det.net), gen0(), det.cfg,
         det.image_cap(s_l.shape[0]), mesh)
     arrays.update({"raw_" + k: v for k, v in host(g).items()})
+    g = sharded.detect_sharded_raw(
+        sharded.replicate(mesh, cloud), s_l, m_l, det.net, gen0(), det.cfg,
+        det.image_cap(s_l.shape[0]), mesh, owner=det)
+    arrays.update({"own_raw_" + k: v for k, v in host(g).items()})
     g = sharded.sharded_detect_host(det, cloud, spos, smask, gen0())
     arrays.update({"host_" + k: v for k, v in host(g).items()})
+    det._force_eager = True
+    g = sharded.sharded_detect_host(det, cloud, spos, smask, gen0())
+    det._force_eager = False
+    arrays.update({"eager_host_" + k: v for k, v in host(g).items()})
     # Rank 1 holds another cloud, of another capacity: rank 0's wins.
     mine_pts = pts if rank == 0 else pts[:700] + 1.0
     rep = sharded.replicate(mesh, CloudArrays.from_numpy(
@@ -550,6 +559,27 @@ def test_two_ranks_detection_geometry(runs):
                           + 16 // WORLD])
     np.testing.assert_allclose(
         a["raw_sample"][a["raw_valid"]], cylinder_cloud()[0][sid], atol=0)
+
+
+def test_two_ranks_owner_route_is_the_eager_route(runs):
+    """On both ranks, detect_sharded_raw through the detector's programs
+    (owner=) and sharded_detect_host by them (its default) give the eager
+    routes' merged batches: valid flags and sample ids equal, geometry
+    1e-6, scores 1e-5."""
+    for res in runs["ranks"]:
+        a = res["arrays"]
+        for ours, eager in (("own_raw_", "raw_"), ("host_", "eager_host_")):
+            np.testing.assert_array_equal(a[ours + "valid"],
+                                          a[eager + "valid"])
+            np.testing.assert_array_equal(a[ours + "sample_id"],
+                                          a[eager + "sample_id"])
+            for k in GEOM:
+                np.testing.assert_allclose(a[ours + k], a[eager + k],
+                                           atol=1e-6, err_msg=ours + k)
+            v = a[ours + "valid"]
+            assert v.sum() > 0
+            np.testing.assert_allclose(a[ours + "score"][v],
+                                       a[eager + "score"][v], atol=1e-5)
 
 
 def test_two_ranks_replicate_rank_0s_cloud(runs):
