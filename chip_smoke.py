@@ -195,23 +195,51 @@ Phases; any failure exits non-zero and prints no result line:
      then back to the first net and garbage collected: the request must
      select as a fresh detector does (scores and positions within 1e-5),
      and detect's graphs hold only the current net;
- 19. the kernels line (with each kernel's launches per path, data
+ 19. classifier pipeline, last, on a detector of its own (gen_dataset's:
+     DetectorConfig() with 300 samples, min_inliers 0, the packaged
+     weights), freed after it: gen_dataset.build_items at full width (15
+     channels, 60x60, 8 orientations, view capacities 4096/12288, mesh
+     capacities 6144/33792) for CLASSIFIER_DEPTH's 6 objects x 4 views and
+     2 scenes x 4 views, through DataGenerator.generate by the graph route
+     into memory (the card's machine has no h5py) twice: the first pass's
+     new keys (capture ms, pool bytes), the second's ms/view and
+     instances/s; fails unless the second captures nothing, calls no
+     kernel wrapper and writes the first's labels. Then
+     train_classifier's training (train.fit at batch 256, 6 epochs) on the
+     training views: ms/step by CUDA events, the loss (must fall), held-out
+     accuracy, and its float16 checkpoint (must hold gpd_tpu's keys, load
+     through lenet.load_params and score finite). Then gpd_tpu's quality
+     AUCs (held-out zoo objects, 80 samples; two clutter scenes, 120
+     samples): the shipped lenet_15ch's on the card (floors 0.80 and 0.85)
+     and on the CPU route from the same samples (within 0.02), the fresh
+     checkpoint's and the shipped lenet_3ch's (no floor). Then one
+     clutter view through a 15- and a 3-channel detector from one
+     generator state: channels 0:3 of the raster_blocks images within the
+     image gate of the raster_sums images; one traced graph view of
+     gen_dataset's (its raster_blocks = those its captures recorded); the
+     HDF5 CLIs where h5py imports, else one line saying they did not run.
+     ``python3 chip_smoke.py classifier [OBJECTS VIEWS SCENES EPOCHS]``
+     runs this phase alone (by default at the tools' defaults, 24 x 8, 8
+     scenes, 6 epochs) and prints a summary line last;
+ 20. the kernels line (with each kernel's launches per path, data
      generation's per view by each route too), the card line, and the
      status line last.
 
-Before each path of phases 4-10 and 14 every kernel's launch count is set
+Before each path of phases 4-10, 14 and 19 every kernel's launch count is set
 to 0; it is read just after the path's requests. A wrapper counts where it
 launches its kernel: eagerly, or into a CUDA graph during a capture. A
 replay calls no wrapper, so the kernels a replay runs are counted from a
 profiler trace of it: the device kernels launched inside its
 ``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9 run
 after phase
-6, phases 13-15 before phase 10; phases 12, 17 and 18 run last, 16 with
-them.
+6, phases 13-15 before phase 10; phases 12, 17 and 18 run late, 16 with
+them, and phase 19 last.
 """
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import subprocess
@@ -242,6 +270,11 @@ DATAGEN_OBJECTS = 4
 DATAGEN_VIEWS = 3
 DATAGEN_SCENES = 2
 DATAGEN_SCENE_VIEWS = 2
+# The classifier pipeline's depth: gen_dataset's items for 6 objects x 4
+# views and 2 scenes x 4 views (its defaults: 24 x 8 and 8 x 8), and
+# train_classifier's default epochs.
+CLASSIFIER_DEPTH = (6, 4, 2)
+CLASSIFIER_EPOCHS = 6
 # The seed of the sensor-frame PCD that times the two ascii parse routes at
 # the size of one depth frame.
 SENSOR_SEED = 11
@@ -1874,20 +1907,23 @@ def datagen_breakdown_eager(torch, detector, cand, datagen, det, unit):
 
 
 def profile_offline(torch, profiling, datagen, det, unit, tmp,
-                    family="raster_blocks", label="15 channels"):
+                    family="raster_blocks", label="15 channels", gen=None,
+                    seed=DATAGEN_SEED):
     """One generate_view of seen keys by each route under
     profiling.maybe_trace, in a span read by read_trace: the graph route
     (its replays must run the ``family`` kernels their captures recorded,
-    and capture nothing) and the eager attempt, side by side. Returns the
-    ``family`` kernels the traced graph view ran."""
+    and capture nothing) and the eager attempt, side by side; by ``gen``
+    (a DataGenerator of ``det``, by default at the default DataGenConfig)
+    from the unit's view_generator of ``seed``. Returns the ``family``
+    kernels the traced graph view ran."""
     name, v, view, mesh = unit
-    gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+    gen = gen or datagen.DataGenerator(det, datagen.DataGenConfig())
     tmp = os.path.join(tmp, f"datagen_{family}")
 
     def one_view():
         with profiling.span("generate_view"):
             gen.generate_view(view, mesh, datagen.view_generator(
-                DATAGEN_SEED, name, v, "cuda"), np.random.default_rng(0))
+                seed, name, v, "cuda"), np.random.default_rng(0))
             torch.cuda.synchronize()
     n = len(det.graphs)
     events = traced(profiling, one_view, os.path.join(tmp, "graph"))
@@ -2903,6 +2939,368 @@ def reference_check(torch, syn, lenet, GraspDetector, detector, cfg, kernel):
                 ref[g.valid.numpy()], cfg.num_selected)
 
 
+class MemoryWriter:
+    """gen_dataset's train or test writer in host memory: the is_done and
+    append of datagen.HDF5ShardWriter (the card's machine has no h5py)."""
+
+    def __init__(self):
+        self.done, self.images, self.labels = set(), [], []
+
+    def is_done(self, obj, view):
+        return (obj, view) in self.done
+
+    def append(self, obj, view, images, labels):
+        self.images.append(images)
+        self.labels.append(np.asarray(labels).reshape(-1))
+        self.done.add((obj, view))
+
+    def dataset(self):
+        """The instances as one in-memory block for net.train."""
+        return Blocks(np.concatenate(self.images),
+                      np.concatenate(self.labels))
+
+
+def classifier_pass(torch, img, gen_dataset, det, gen, depth, kept=None):
+    """gen_dataset's generation loop once: its build_items (``depth`` =
+    objects, views per object, scenes) through gen.generate into two
+    MemoryWriters, the per-view log kept out of the output. Returns the
+    writers, the pass's host ms (preprocessing included, to the last view's
+    rows on the host), the views, the keys it captured and the kernel
+    wrapper calls it made. Appends each item to ``kept``."""
+    objects, views, scenes = depth
+    train, test = MemoryWriter(), MemoryWriter()
+    n0, calls0 = len(det.graphs), sum(counts(img).values())
+
+    def items():
+        for item in gen_dataset.build_items(det, objects, views,
+                                            num_scenes=scenes):
+            if kept is not None:
+                kept.append(item)
+            yield item
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen.generate(items(), train, writer_test=test,
+                     total_items=(objects + scenes) * views)
+    torch.cuda.synchronize()
+    return dict(train=train, test=test, ms=(time.perf_counter() - t0) * 1e3,
+                views=len(train.done) + len(test.done),
+                new=list(det.graphs)[n0:],
+                calls=sum(counts(img).values()) - calls0)
+
+
+def heldout_views(syn, CloudArrays, det):
+    """gpd_tpu's held-out quality views (tests/test_classifier_quality.py):
+    object_zoo(3, seed=17), one camera each from rng 99, preprocessed by
+    ``det`` at its snug capacity; (view, whole object as mesh) pairs."""
+    rng = np.random.default_rng(99)
+    out = []
+    for _, mpts, mnrm in syn.object_zoo(3, seed=17):
+        cam = syn.view_cameras(rng, 1)[0]
+        out.append((det.preprocess_cloud(syn.render_view(rng, mpts, mnrm, cam),
+                                         view_points=cam.reshape(1, 3)),
+                    CloudArrays.from_numpy(mpts, normals=mnrm,
+                                           device="cuda")))
+    return out
+
+
+def clutter_views(syn, CloudArrays, det):
+    """gpd_tpu's held-out clutter views: 2 make_scene(n_objects=3) scenes
+    from rng 1234, two fused occluded cameras each; (view, whole scene as
+    mesh) pairs."""
+    rng = np.random.default_rng(1234)
+    out = []
+    for _ in range(2):
+        spts, snrm = syn.make_scene(rng, n_objects=3)
+        cams = syn.view_cameras(rng, 2, dist=0.7)
+        vpts, vcam, vps = syn.render_fused_views(rng, spts, snrm, cams,
+                                                 occluded=True)
+        out.append((det.preprocess_cloud(vpts, view_points=vps,
+                                         cam_source=vcam),
+                    CloudArrays.from_numpy(spts, normals=snrm,
+                                           device="cuda")))
+    return out
+
+
+def rank_auc(scores, labels):
+    """The probability that a random positive outscores a random negative
+    (gpd_tpu's quality tests' ``_auc``)."""
+    scores, labels = np.concatenate(scores), np.concatenate(labels)
+    order = np.argsort(scores, kind="stable")
+    ranks = np.empty(len(scores))
+    ranks[order] = np.arange(1, len(scores) + 1)
+    npos = int(labels.sum())
+    nneg = len(labels) - npos
+    if not (npos and nneg):
+        fail(f"an AUC over {npos} positives and {nneg} negatives")
+    return float((ranks[labels == 1].sum() - npos * (npos + 1) / 2)
+                 / (npos * nneg)), len(labels), npos
+
+
+def quality_auc(torch, detector, cand, det, views, samples, seed,
+                cpu_det=None):
+    """The rank AUC of ``det``'s scores against full-mesh antipodal labels
+    over ``views``: per view ``samples`` samples drawn on the card from
+    seed + i, the valid candidates and scores from detect's A and B (CUDA
+    graphs) given those samples, their labels from reevaluate_hypotheses
+    on the card. With ``cpu_det``, the same views and samples through the
+    CPU route too (detect_core and the relabeling on the CPU; the shadow
+    draws are the CPU generator's). Returns (AUC, candidates, positives)
+    per route."""
+    out = {"card": ([], []), "cpu": ([], [])}
+    for i, (view, mesh) in enumerate(views):
+        cfg = dataclasses.replace(det.effective_config(view),
+                                  num_samples=samples)
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        spos, smask = detector.sample_points(view, gen, cfg)
+        scored, _, n_a, _ = det._scored_programs(view, spos, smask, gen,
+                                                 cfg)
+        labels, _ = cand.reevaluate_hypotheses(mesh, scored, cfg)
+        out["card"][0].append(scored.score[:n_a[0]].cpu().numpy())
+        out["card"][1].append(labels[:n_a[0]].cpu().numpy())
+        if cpu_det is None:
+            continue
+        g, _ = detector.detect_core(
+            moved(torch, view, "cpu"), spos.cpu(), smask.cpu(), cpu_det.net,
+            torch.Generator().manual_seed(seed + i), cfg,
+            det.image_cap(samples), scores_only=True)
+        labels, _ = cand.reevaluate_hypotheses(moved(torch, mesh, "cpu"), g,
+                                               cfg)
+        n = int(g.valid.sum())
+        out["cpu"][0].append(g.score[:n].numpy())
+        out["cpu"][1].append(labels[:n].numpy())
+    return {route: rank_auc(*v) for route, v in out.items() if v[0]}
+
+
+def sliced_vs_native(torch, det, det3, view):
+    """One view through the 15- and the 3-channel detector from one
+    generator state (detect's A and B with images, CUDA graphs): the same
+    candidates, and channels 0:3 of the raster_blocks images within the
+    repo's image gate of the raster_sums images (slice_channels'
+    premise)."""
+    out = {}
+    for c, d in ((15, det), (3, det3)):
+        g, images, n = d.candidates_with_images(
+            view, torch.Generator(device="cuda").manual_seed(3))
+        out[c] = (g.position[:n].cpu(), images[:n].cpu().numpy())
+    (p15, i15), (p3, i3) = out[15], out[3]
+    if not (torch.equal(p15, p3) and len(p3) and i3.any()):
+        fail(f"the 15- and 3-channel detectors found other candidates "
+             f"({len(p15)}, {len(p3)})")
+    diff = np.abs(i15[..., :3].astype(np.int32) - i3.astype(np.int32))
+    frac = float((diff > 1).mean())
+    print(f"sliced vs native (one clutter view, {len(p3)} hands): channels "
+          f"0:3 of the 15-channel images against the 3-channel images: max "
+          f"u8 diff {int(diff.max())}, share |diff|>1 = {frac:.2e}")
+    if frac >= 5e-3:
+        fail("sliced 15-channel images leave the 3-channel images' gate")
+
+
+def classifier_hdf5(gen_dataset, train_classifier, lenet, tmp):
+    """The HDF5 CLIs on the card, where h5py imports: gen_dataset.main at 1
+    object x 2 views and no scenes, then train_classifier.main for 1 epoch;
+    fails unless both sets and a checkpoint in gpd_tpu's keys result.
+    Without h5py one line says they did not run."""
+    try:
+        import h5py
+    except ImportError:
+        print("gen_dataset / train_classifier HDF5 CLIs: NOT run on the "
+              "card (this machine has no h5py); the phase generated and "
+              "trained from memory through the same functions")
+        return
+    out = os.path.join(tmp, "classifier_set")
+    gen_dataset.main([out, "1", "2", "0"], device="cuda")
+    train_classifier.main([out, "1", os.path.join(out, "c.npz")],
+                          device="cuda")
+    with h5py.File(os.path.join(out, "train.h5")) as f:
+        n = f["labels"].shape[0]
+    with np.load(os.path.join(out, "c.npz")) as f:
+        keys = sorted(f.files)
+    if keys != sorted(lenet.load_params_npz(lenet.default_params_path(15))):
+        fail(f"train_classifier wrote keys {keys}")
+    print(f"gen_dataset / train_classifier HDF5 CLIs on the card: {n} "
+          f"training instances, checkpoint keys {keys}")
+
+
+def classifier_path(torch, img, profiling, syn, datagen, detector, cand,
+                    lenet, train, gen_dataset, train_classifier,
+                    GraspDetector, CloudArrays, ImageGeometry, tmp, depth,
+                    epochs):
+    """The classifier pipeline on its own detector (gen_dataset's:
+    DetectorConfig() with 300 samples, min_inliers 0, the packaged
+    weights): gen_dataset's items (build_items at ``depth``) through
+    DataGenerator.generate by the graph route into memory, twice (the
+    first pass captures; the second must capture nothing, call no kernel
+    wrapper and find the first's labels); train_classifier's training at
+    batch 256 for ``epochs`` on the second pass's train set and its
+    float16 checkpoint; the quality AUCs; the sliced-vs-native check; one
+    traced graph view. Returns the kernel wrapper calls of the phase."""
+    det = gen_dataset.make_detector("cuda")
+    gen = gen_dataset.make_generator(det, depth[1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(img)
+    kept = []
+    first = classifier_pass(torch, img, gen_dataset, det, gen, depth, kept)
+    second = classifier_pass(torch, img, gen_dataset, det, gen, depth)
+    train_set, test_set = second["train"].dataset(), second["test"].dataset()
+    n_train, n_test = len(train_set.labels), len(test_set.labels)
+    pool = sum(e.pool_bytes for e in det.graphs.values())
+    print(f"classifier items: gen_dataset.build_items({depth[0]} objects, "
+          f"{depth[1]} views, {depth[2]} scenes) at 15 channels, "
+          f"{det.cfg.num_samples} samples, capacities view "
+          f"{gen_dataset.VIEW_CAPACITY}/{gen_dataset.SCENE_VIEW_CAPACITY}, "
+          f"mesh {gen_dataset.MESH_CAPACITY}/"
+          f"{gen_dataset.SCENE_MESH_CAPACITY}; pass 1 {first['views']} "
+          f"views in {first['ms']:.2f} ms, {len(first['new'])} keys "
+          f"captured (warm-up + capture ms, pool bytes added): " + ", ".join(
+              f"{key_label(k)} {det.graphs[k].capture_s * 1e3:.2f} "
+              f"(+{det.graphs[k].pool_bytes})" for k in first["new"]) +
+          f"; pool {pool} bytes over {len(det.graphs)} graphs")
+    ms_view = second["ms"] / second["views"]
+    print(f"classifier items, pass 2 (seen keys): {second['views']} views in "
+          f"{second['ms']:.2f} ms, {ms_view:.2f} ms/view (preprocess, "
+          f"attempts, rows to the host), "
+          f"{(n_train + n_test) / second['ms'] * 1e3:.1f} instances/s; "
+          f"train {n_train}, test {n_test} instances; keys captured "
+          f"{len(second['new'])}, kernel wrapper calls {second['calls']}")
+    if second["new"] or second["calls"]:
+        fail("gen_dataset's second pass captured or ran eagerly")
+    for split in ("train", "test"):
+        a, b = first[split], second[split]
+        if a.done != b.done or not all(
+                np.array_equal(x, y) for x, y in zip(a.labels, b.labels)):
+            fail(f"gen_dataset's second pass wrote other {split} labels")
+
+    losses, events = [], []
+
+    def on_step(step, loss, acc):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = train.fit(train_set, None, 15, epochs=epochs,
+                       batch_size=train_classifier.BATCH_SIZE, device="cuda",
+                       on_step=on_step)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    step_ms = np.array([a.elapsed_time(b) for a, b in zip(events,
+                                                           events[1:])])
+    loss = torch.stack(losses).cpu().numpy()
+    w = min(100, len(loss) // 2)
+    first_loss, last_loss = float(loss[:w].mean()), float(loss[-w:].mean())
+    held_loss, held_acc = train.evaluate(
+        lenet.params_from_numpy(params, "cuda"), test_set)
+    path = train_classifier.save_checkpoint(
+        params, os.path.join(tmp, "lenet_15ch.npz"))
+    with np.load(path) as f:
+        stored = {k: f[k] for k in f.files}
+    shipped = lenet.load_params_npz(lenet.default_params_path(15))
+    trained = lenet.params_from_numpy(lenet.load_params(path, 15), "cuda")
+    x = torch.from_numpy(test_set.images[:256]).cuda()
+    s = lenet.score(trained, x)
+    print(f"classifier training (train.fit, batch "
+          f"{train_classifier.BATCH_SIZE}, {epochs} epochs, each step a "
+          f"CUDA graph replay): {n_train} instances, {len(loss)} steps in "
+          f"{total:.3f} s, median {np.median(step_ms):.4f} ms/step (p90 "
+          f"{np.percentile(step_ms, 90):.4f}, CUDA events); mean loss of the "
+          f"first {w} steps {first_loss:.4f}, of the last {w} "
+          f"{last_loss:.4f}; held-out views ({n_test} instances): loss "
+          f"{held_loss:.4f}, accuracy {held_acc:.4f}; checkpoint "
+          f"{sorted(stored)} {sorted({str(v.dtype) for v in stored.values()})}"
+          f", {len(x)} held-out images scored finite: "
+          f"{bool(torch.isfinite(s).all())}")
+    if not last_loss < first_loss:
+        fail("the classifier's training loss did not fall")
+    if sorted(stored) != sorted(shipped) or any(
+            v.dtype != np.float16 for v in stored.values()):
+        fail("train_classifier's checkpoint leaves gpd_tpu's keys or "
+             "float16")
+    if not torch.isfinite(s).all():
+        fail("the trained checkpoint scores non-finite")
+
+    cfg3 = dataclasses.replace(det.cfg, image_geometry=ImageGeometry(
+        num_channels=3))
+    det3 = GraspDetector(cfg3, device="cuda")
+    det_t = GraspDetector(det.cfg, params=lenet.load_params(path, 15),
+                          device="cuda")
+    cpu_det = GraspDetector(det.cfg, device="cpu")
+    views = {"held-out objects": (heldout_views(syn, CloudArrays, det), 80,
+                                  7, 0.80),
+             "clutter": (clutter_views(syn, CloudArrays, det), 120, 5, 0.85)}
+    aucs = {}
+    for label, (vs, samples, seed, floor) in views.items():
+        shipped_auc = quality_auc(torch, detector, cand, det, vs, samples,
+                                  seed, cpu_det)
+        trained_auc = quality_auc(torch, detector, cand, det_t, vs, samples,
+                                  seed)["card"]
+        auc3 = quality_auc(torch, detector, cand, det3, vs, samples,
+                           seed)["card"]
+        (card, n, npos), cpu = shipped_auc["card"], shipped_auc["cpu"]
+        aucs[label] = dict(shipped=card, cpu=cpu[0], trained=trained_auc[0],
+                           shipped_3ch=auc3[0])
+        print(f"classifier AUC, {label} ({len(vs)} views, {samples} samples, "
+              f"{n} candidates, {npos} positive): shipped lenet_15ch on the "
+              f"card {card:.4f} (floor {floor}), on the CPU route "
+              f"{cpu[0]:.4f} over {cpu[1]} candidates (|gap| "
+              f"{abs(card - cpu[0]):.4f}, limit 0.02); this run's trained "
+              f"checkpoint {trained_auc[0]:.4f} (not gated); shipped "
+              f"lenet_3ch {auc3[0]:.4f} (no floor)")
+        if not card > floor:
+            fail(f"the shipped classifier's {label} AUC {card:.4f} <= "
+                 f"{floor}")
+        if abs(card - cpu[0]) >= 0.02:
+            fail(f"{label} AUC: card {card:.4f}, CPU {cpu[0]:.4f}")
+    sliced_vs_native(torch, det, det3, views["clutter"][0][0][0])
+    traced_view = profile_offline(torch, profiling, datagen, det, kept[0],
+                                  tmp, label="15 channels, gen_dataset",
+                                  gen=gen, seed=0)
+    launches = counts(img)
+    print(f"classifier pipeline: kernel wrapper calls {launches} (captures' "
+          f"warm-ups and captures, the CPU route none); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (launches["raster_blocks"] and launches["raster_sums"]):
+        fail(f"the classifier pipeline launched {launches}")
+    classifier_hdf5(gen_dataset, train_classifier, lenet, tmp)
+    summary = dict(views=second["views"], ms_per_view=ms_view,
+                   instances=n_train + n_test, steps=len(loss),
+                   ms_per_step=float(np.median(step_ms)), auc=aucs)
+    del det, det3, det_t, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, traced_view, summary
+
+
+def classifier_only(torch, card, args):
+    """``python3 chip_smoke.py classifier [OBJECTS VIEWS SCENES EPOCHS]``:
+    the classifier pipeline phase alone at that depth (by default
+    gen_dataset's and train_classifier's: 24 objects x 8 views, 8 scenes,
+    6 epochs), after building the two raster kernels; prints a summary
+    line last."""
+    from gpd_tpu_torch import datagen, detector, profiling
+    from gpd_tpu_torch.config import ImageGeometry
+    from gpd_tpu_torch.core.types import CloudArrays
+    from gpd_tpu_torch.datasets import synthetic as syn
+    from gpd_tpu_torch.detector import GraspDetector
+    from gpd_tpu_torch.net import lenet, train
+    from gpd_tpu_torch.ops import _build
+    from gpd_tpu_torch.ops import candidates as cand
+    from gpd_tpu_torch.ops import images as img
+    from gpd_tpu_torch.tools import gen_dataset, train_classifier
+
+    objects, views, scenes, epochs = (args + [24, 8, 8, 6][len(args):])[:4]
+    _build.build(["raster_blocks", "raster_sums"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, _, summary = classifier_path(
+            torch, img, profiling, syn, datagen, detector, cand, lenet, train,
+            gen_dataset, train_classifier, GraspDetector, CloudArrays,
+            ImageGeometry, tmp, (objects, views, scenes), epochs)
+    summary["wall_s"] = time.perf_counter() - t0
+    print(card)
+    print(json.dumps({"classifier": summary, "launches": launches}))
+
+
 def main():
     # One card: the first, unless the caller chose one.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -2917,6 +3315,8 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
+    if sys.argv[1:2] == ["classifier"]:
+        return classifier_only(torch, card, [int(a) for a in sys.argv[2:]])
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -2931,6 +3331,7 @@ def main():
     from gpd_tpu_torch.ops import _build
     from gpd_tpu_torch.ops import candidates as cand
     from gpd_tpu_torch.ops import images as img
+    from gpd_tpu_torch.tools import gen_dataset, train_classifier
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
           f"{torch.cuda.nccl.version()}, {torch.cuda.get_device_name(0)}")
@@ -3052,6 +3453,14 @@ def main():
                     DetectorConfig(num_samples=32, image_geometry=ImageGeometry(
                         num_channels=3)), img.raster_sums)
     net_swap_check(torch, lenet, syn, det, GraspDetector, DetectorConfig)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_q, traced_q, _ = classifier_path(
+            torch, img, profiling, syn, datagen, detector, cand, lenet, train,
+            gen_dataset, train_classifier, GraspDetector, CloudArrays,
+            ImageGeometry, tmp, CLASSIFIER_DEPTH, CLASSIFIER_EPOCHS)
+    by_path[f"classifier pipeline, 15 and 3 channels (gen_dataset's items "
+            f"{CLASSIFIER_DEPTH} twice, training, AUC requests, sliced vs "
+            f"native; wrapper calls: warm-ups and captures)"] = launches_q
 
     entries["raster_blocks"]["launches"] = launches15["raster_blocks"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
@@ -3077,6 +3486,9 @@ def main():
     entries["raster_sums"]["launches_by_path"][
         f"generate_view, 3 channels, graph route, {units[0][0]} view "
         f"{units[0][1]} (from its trace)"] = traced_view3
+    entries["raster_blocks"]["launches_by_path"][
+        "classifier pipeline, one gen_dataset view, graph route (from its "
+        "trace)"] = traced_q
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_ratio", "launches_by_path", "staged_chunk", "note")

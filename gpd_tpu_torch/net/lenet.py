@@ -206,9 +206,10 @@ def load_params_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def default_params_path(num_channels: int) -> str:
-    """The packaged trained checkpoint for a channel count. It is a data
-    file of the JAX package, read by path; the port imports nothing of it."""
-    return os.path.join(os.path.dirname(__file__), "..", "..", "gpd_tpu",
+    """The packaged trained checkpoint for a channel count: the port's own
+    copy in ``gpd_tpu_torch/models``, byte for byte gpd_tpu's (written by
+    ``tools.train_classifier`` in gpd_tpu's key names)."""
+    return os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "models", f"lenet_{num_channels}ch.npz")
 
 
