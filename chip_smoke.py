@@ -13,7 +13,8 @@ Phases; any failure exits non-zero and prints no result line:
      shapes, with its time, the plain version's, one library call's and
      the bound (each timed call reads its inputs from HBM, not the L2):
      raster_blocks at 512 hands, 2048 points and 2048 shadow points, with
-     and without shadows; raster_sums at 512 hands, 2048 points, 60x60
+     shadows (15 channels) and without (12 channels), each mode timed on
+     the same operands; raster_sums at 512 hands, 2048 points, 60x60
      cells, Cp = 4 and 2; raster_sums2 (two row sets) at
      Cp = 6 and 3, with each Cp's ms / bound_ms on one line; then
      raster_blocks, raster_sums and raster_sums2 at ragged shapes (G 1,
@@ -221,19 +222,35 @@ Phases; any failure exits non-zero and prints no result line:
      ``python3 chip_smoke.py classifier [OBJECTS VIEWS SCENES EPOCHS]``
      runs this phase alone (by default at the tools' defaults, 24 x 8, 8
      scenes, 6 epochs) and prints a summary line last;
- 20. the kernels line (with each kernel's launches per path, data
-     generation's per view by each route too), the card line, and the
-     status line last.
+ 20. 12 and 1 channels, each on a detector of its own (random init from
+     seed 0: no packaged checkpoint exists at these widths), freed after
+     it. 12 channels (raster_blocks without shadows) at the default
+     DetectorConfig otherwise: per scene of phase 4 what phase 4 does for
+     detect and whole requests (graph against eager in turns, one traced
+     replay running the raster_blocks its captures recorded); on scene 0
+     the card against the same detector's CPU route (frames within 1e-4
+     where well conditioned; from the CPU's frames the same valid hands
+     within 1e-5; one image chunk within the image gate); CEM's fused
+     route against its loop on scene 0 as phase 5 does; generate_view by
+     route on one view of each zoo object as phase 14 does. 1 channel
+     (raster_sums at Cp = 2): detect_file on phase 10's PCD scenes and
+     options, per scene graph against eager in turns and one traced
+     replay, then the card against the CPU route on the first scene.
+     ``python3 chip_smoke.py widths`` runs raster_blocks' check and this
+     phase alone and prints a summary line last;
+ 21. the kernels line (with each kernel's launches per path, data
+     generation's per view by each route too; a second raster_blocks
+     entry, shadows false, for the 12-channel paths), the card line, and
+     the status line last.
 
-Before each path of phases 4-10, 14 and 19 every kernel's launch count is set
-to 0; it is read just after the path's requests. A wrapper counts where it
-launches its kernel: eagerly, or into a CUDA graph during a capture. A
-replay calls no wrapper, so the kernels a replay runs are counted from a
-profiler trace of it: the device kernels launched inside its
-``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9 run
-after phase
-6, phases 13-15 before phase 10; phases 12, 17 and 18 run late, 16 with
-them, and phase 19 last.
+Before each path of phases 4-10, 14, 19 and 20 every kernel's launch count
+is set to 0; it is read just after the path's requests. A wrapper counts
+where it launches its kernel: eagerly, or into a CUDA graph during a
+capture. A replay calls no wrapper, so the kernels a replay runs are
+counted from a profiler trace of it: the device kernels launched inside
+its ``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9
+run after phase 6, phases 13-15 before phase 10; phases 12, 17 and 18
+run late, 16 with them, and phases 19 and 20 last.
 """
 
 import contextlib
@@ -275,6 +292,9 @@ DATAGEN_SCENE_VIEWS = 2
 # train_classifier's default epochs.
 CLASSIFIER_DEPTH = (6, 4, 2)
 CLASSIFIER_EPOCHS = 6
+# The samples whose hands card_vs_cpu searches on the CPU too: the CPU's
+# hand search over all 1000 took 16-26 s on the card's host.
+CARD_VS_CPU_SAMPLES = 128
 # The seed of the sensor-frame PCD that times the two ascii parse routes at
 # the size of one depth frame.
 SENSOR_SEED = 11
@@ -366,12 +386,13 @@ def bound(nbytes, n_ops):
 
 
 def check_raster(torch, img):
-    """raster_blocks against raster_blocks_ref; returns the kernels-line
-    entry for the with-shadow (main path) shapes."""
+    """raster_blocks against raster_blocks_ref, with shadows (the 15-channel
+    paths) and without (the 12-channel paths) on the same operands, each
+    timed; returns the two kernels-line entries, with shadows first."""
     G, K, size = 512, 2048, 60
     gen = torch.Generator(device="cuda").manual_seed(0)
     midx, mvals, sidx, svals = raster_operands(torch, gen, G, K, K, size)
-    entry, max_err = None, 0.0
+    entries = []
     for with_shadow in (True, False):
         args = ((midx, mvals, sidx, svals) if with_shadow
                 else (midx, mvals, None, None))
@@ -379,23 +400,25 @@ def check_raster(torch, img):
         err = hold(torch, f"raster_blocks (shadows={with_shadow})",
                    lambda: img.raster_blocks(*args, size), ref,
                    raster_counts(with_shadow))
-        max_err = max(max_err, err)
-        nb = ref.shape[1]
         print(f"raster_blocks shadows={with_shadow}: G={G} Km={K} "
-              f"Ks={K if with_shadow else 0} NB={nb} max_abs_err={err:.3e}")
-        if with_shadow:
-            entry = dict(name="raster_blocks", route="cuda",
-                         source="gpd_tpu_torch/csrc/raster_blocks.cu",
-                         replaces="gpd_tpu/ops/images.py:204",
-                         **time_raster(torch, img, args, ref, size))
-    entry["max_abs_err"] = max(max_err, check_raster_ragged(torch, img))
-    return entry
+              f"Ks={K if with_shadow else 0} NB={ref.shape[1]} "
+              f"max_abs_err={err:.3e}")
+        entries.append(dict(name="raster_blocks", shadows=with_shadow,
+                            route="cuda",
+                            source="gpd_tpu_torch/csrc/raster_blocks.cu",
+                            replaces="gpd_tpu/ops/images.py:204",
+                            max_abs_err=err,
+                            **time_raster(torch, img, args, ref, size)))
+    ragged = check_raster_ragged(torch, img)
+    for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], ragged)
+    return entries
 
 
 def time_raster(torch, img, args, ref, size):
     """raster_blocks, its plain version and one index_put_ on the same
-    operands (with shadows), and the bound; prints them and returns the
-    kernels-line timing fields."""
+    operands (with shadows unless args' shadow operands are None), and the
+    bound; prints them and returns the kernels-line timing fields."""
     ms = cuda_ms(torch, lambda *a: img.raster_blocks(*a, size), args)
     plain_ms = cuda_ms(torch, lambda *a: img.raster_blocks_ref(*a, size),
                        args)
@@ -412,10 +435,12 @@ def time_raster(torch, img, args, ref, size):
     if not torch.allclose(lib_out.view_as(ref), ref, atol=1e-3, rtol=1e-5):
         fail("index_put_ yardstick disagrees with raster_blocks_ref")
     del lib_out
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, ref))
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, ref)
+                 if t is not None)
     n_ops = int(vals.numel())          # one f32 add per contribution
     bound_ms, bound_by = bound(nbytes, n_ops)
-    print(f"raster_blocks timing (G={args[0].shape[0]}): {ms:.4f} ms, plain "
+    print(f"raster_blocks timing (G={args[0].shape[0]}, shadows="
+          f"{args[2] is not None}): {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M "
           f"adds); ms / bound_ms = {ms / bound_ms:.2f}")
@@ -472,6 +497,8 @@ def flat_contributions(torch, img, midx, mvals, sidx, svals, size, nb):
     flats, values = [], []
     for idx, v, groups in ((midx, mvals, img._MAIN_GROUPS),
                            (sidx, svals, img._SHADOW_GROUPS)):
+        if idx is None:
+            continue
         for plane0, rsel, csel, rows_of_values in groups:
             rows, cols = idx[:, rsel].long(), idx[:, csel].long()
             ok = (rows < size) & (cols < size)
@@ -1018,14 +1045,16 @@ def captured_launches(entry):
             "raster_sums": n["raster_sums"] + n["raster_sums2"]}
 
 
-def cem_path(torch, img, profiling, syn, det, cem, CEMConfig):
+def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
+             label="CEM"):
     """CEM (SequentialImportanceSampling) at the default CEMConfig on the
     15-channel path's scenes, by the fused route (the default on the card:
     one CUDA graph per static key, captured at the key's first request) and
     by the loop (_force_loop), in turns (fused, loop, loop, fused, after
     the fused route's first request), every request from a generator of
-    the same seed: a scene each with SUM_OF_GAUSSIANS, then request 0's
-    scene with MAX_OF_GAUSSIANS. Fails unless every fused request finds the
+    the same seed: ``runs``' (scene, sampling method) pairs, by default a
+    scene each with SUM_OF_GAUSSIANS, then request 0's scene with
+    MAX_OF_GAUSSIANS. Fails unless every fused request finds the
     loop's round counts, selects a grasp with finite scores and shares >=
     90% of the loop's selection by position (1e-5), and a key's later
     requests capture nothing and call no kernel wrapper. After the turns,
@@ -1039,12 +1068,13 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig):
     t0 = time.perf_counter()
     loop.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
                 generator=seeded(torch, 100), verbose=False)
-    print(f"CEM warm-up request (loop): {time.perf_counter() - t0:.3f} s")
+    print(f"{label} warm-up request (loop): {time.perf_counter() - t0:.3f} s")
     reset_counts(img)
     by_route = {"fused": counts(img), "loop": counts(img)}
     traces = tempfile.TemporaryDirectory()
-    runs = [(r, cem.SUM_OF_GAUSSIANS) for r in range(REQUESTS)]
-    for r, method in runs + [(0, cem.MAX_OF_GAUSSIANS)]:
+    runs = runs or ([(r, cem.SUM_OF_GAUSSIANS) for r in range(REQUESTS)]
+                    + [(0, cem.MAX_OF_GAUSSIANS)])
+    for r, method in runs:
         fused.cem = loop.cem = CEMConfig(sampling_method=method)
         p, cs, vp = scene(syn, r)
         cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
@@ -1095,7 +1125,7 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig):
         shares = [selection_share(f[2], sel_l) for f in res["fused"]]
         h = res["fused"][0][2]
         scores = h.score[h.valid]
-        print(f"CEM request {r} ({name}): {int(cloud.mask.sum())} points, "
+        print(f"{label} request {r} ({name}): {int(cloud.mask.sum())} points, "
               f"capacity {cloud.capacity}; round candidates "
               f"{res['fused'][0][0]} (loop {rounds_l}), valid candidates "
               f"{sum(res['fused'][0][0])} (loop {sum(rounds_l)}), grasps "
@@ -1110,27 +1140,27 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig):
               f"{np.round(scores[:5], 3).tolist()}")
         for rounds_f, grasps_f, sel_f, launch_f in res["fused"]:
             if rounds_f != rounds_l:
-                fail(f"CEM request {r} ({name}): the fused route's round "
+                fail(f"{label} request {r} ({name}): the fused route's round "
                      f"counts {rounds_f} are not the loop's {rounds_l}")
             s = sel_f.score[sel_f.valid]
             if grasps_f < 1 or not np.all(np.isfinite(s)):
-                fail(f"CEM request {r} ({name}): the fused route found no "
+                fail(f"{label} request {r} ({name}): the fused route found no "
                      f"grasp or a non-finite score")
             if launch_f != 0:
-                fail(f"CEM request {r} ({name}): a fused request of a seen "
-                     f"key called a kernel wrapper: it ran eagerly")
+                fail(f"{label} request {r} ({name}): a fused request of a "
+                     f"seen key called a kernel wrapper: it ran eagerly")
         if ran != want or ran["raster_blocks"] < 1:
-            fail(f"CEM request {r} ({name}): a traced replay ran {ran}, its "
-                 f"capture recorded {want}")
+            fail(f"{label} request {r} ({name}): a traced replay ran {ran}, "
+                 f"its capture recorded {want}")
         if min(shares) < 0.9:
-            fail(f"CEM request {r} ({name}): the fused route shares "
+            fail(f"{label} request {r} ({name}): the fused route shares "
                  f"{min(shares):.1%} of the loop's selection")
         if len(fused.graphs) != n_graphs:
-            fail(f"CEM request {r} ({name}): a request of a seen key "
+            fail(f"{label} request {r} ({name}): a request of a seen key "
                  f"captured a graph")
-    print(f"launches on the CEM path: fused, run by {len(runs) + 1} traced "
+    print(f"launches on the {label} path: fused, run by {len(runs)} traced "
           f"replays {by_route['fused']}; loop {by_route['loop']} "
-          f"({2 * (len(runs) + 1)} requests); {len(fused.graphs)} graphs "
+          f"({2 * len(runs)} requests); {len(fused.graphs)} graphs "
           f"captured, their shared pool {fused.pool_bytes} bytes")
     traces.cleanup()
     return by_route
@@ -3271,6 +3301,254 @@ def classifier_path(torch, img, profiling, syn, datagen, detector, cand,
     return launches, traced_view, summary
 
 
+def single_camera_config(DetectorConfig, ImageGeometry, cam, channels):
+    """The detect_grasps config of the single-camera PCD scenes: default
+    widths and 1000 samples at ``channels``, outlier removal, sampling
+    above the plane and plane removal before the images on, the camera at
+    ``cam`` (1, 3)."""
+    return DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels),
+        remove_outliers=True, sample_above_plane=True,
+        remove_plane_before_image_calculation=True,
+        camera_position=tuple(cam[0].tolist()))
+
+
+def well_conditioned(torch, cloud, spos, smask, radius, min_gap=0.05):
+    """``smask`` kept where the local frame is well conditioned: (l1 - l0)
+    / l2 > min_gap for the eigenvalues of sum n n^T over the cloud's points
+    within ``radius`` (estimate_frames' moments), in float64. Elsewhere
+    rounding sets the frame's axes (ROADMAP.md C), and two devices may
+    take other ones."""
+    p, n = cloud.points.double(), cloud.normals.double()
+    near = ((torch.cdist(spos.double(), p) <= radius)
+            & cloud.mask[None]).double()
+    m = (near @ (n[:, :, None] * n[:, None, :]).reshape(-1, 9)).reshape(
+        -1, 3, 3)
+    w = torch.linalg.eigvalsh(m)
+    return smask & ((w[:, 1] - w[:, 0]) > min_gap * w[:, 2].clamp_min(1e-12))
+
+
+def card_vs_cpu(torch, img, detector, det, cloud, label):
+    """detect's stages on the card against the same detector's CPU route
+    (its config, on the CPU) on one cloud and detect's samples (seed 0).
+    The local frames of the samples where they are well conditioned
+    (well_conditioned) must agree within 1e-4; elsewhere rounding sets
+    their axes (ROADMAP.md C). From the CPU's frames, the hand search and
+    filters of the first CARD_VS_CPU_SAMPLES samples on each device must
+    give the same valid hands, their positions and orientations within
+    1e-5 (the hands that each device's own frames give are counted too).
+    Then the CPU's first image chunk of those valid hands, from the CPU's
+    image inputs, by the card's kernel and by the CPU's plain route must
+    stay within the repo's image gate (under 0.5% of pixels more than one
+    uint8 step apart)."""
+    cfg = det.effective_config(cloud)
+    spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
+    cloud_cpu = moved(torch, cloud, "cpu")
+
+    def frames(c, s, m):
+        return detector.estimate_frames(s, m, c.points, c.mask, c.normals,
+                                        radius=cfg.nn_radius_frames)
+    fr_card, fv_card = frames(cloud, spos, smask)
+    fr_cpu, fv_cpu = frames(cloud_cpu, spos.cpu(), smask.cpu())
+    kept = well_conditioned(torch, cloud, spos, smask,
+                            cfg.nn_radius_frames).cpu() & fv_cpu
+    if not (torch.equal(fv_card.cpu(), fv_cpu) and kept.any()):
+        fail(f"{label}: card and CPU find other valid frames, or none is "
+             f"well conditioned ({int(kept.sum())})")
+    frame_gap = float((fr_card.cpu() - fr_cpu)[kept].abs().max())
+    n = CARD_VS_CPU_SAMPLES
+    t0 = time.perf_counter()
+    cpu = detector.hands_at_frames(cloud_cpu, spos[:n].cpu(), fr_cpu[:n],
+                                   fv_cpu[:n], cfg)
+    t_cpu = time.perf_counter() - t0
+    card = detector.hands_at_frames(cloud, spos[:n], fr_cpu[:n].cuda(),
+                                    fv_cpu[:n].cuda(), cfg)
+    own = detector.hands_at_frames(cloud, spos[:n], fr_card[:n],
+                                   fv_card[:n], cfg).valid.cpu()
+    v = cpu.valid
+    if not (torch.equal(card.valid.cpu(), v) and v.any()):
+        fail(f"{label}: from the same frames the card found "
+             f"{int(card.valid.sum())} valid hands, the CPU {int(v.sum())}")
+    gap = max(float((getattr(card, f).cpu()[v] - getattr(cpu, f)[v]).abs()
+                    .max()) for f in ("position", "orientation"))
+    if gap > 1e-5 or frame_gap > 1e-4:
+        fail(f"{label}: card and CPU hands are {gap:.2e} apart, frames "
+             f"{frame_gap:.2e}")
+    mask = detector.image_point_mask(cloud_cpu,
+                                     torch.Generator().manual_seed(1), cfg)
+    inputs = detector.image_inputs_stage(cloud_cpu, mask, spos[:n].cpu(),
+                                         smask[:n].cpu(), None, cfg)
+    g = detector._compact_hands(cpu, det.image_cap(n))
+    ref = detector._images_for(cloud_cpu, g, *inputs, cfg).numpy()
+    before = sum(counts(img).values())
+    out = detector._images_for(cloud, moved(torch, g, "cuda"),
+                               *[moved(torch, t, "cuda") for t in inputs],
+                               cfg).cpu().numpy()
+    if sum(counts(img).values()) == before:
+        fail(f"{label}: the card's images did not reach a kernel")
+    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+    frac = float((diff > 1).mean())
+    print(f"{label}, card vs CPU: frames {frame_gap:.2e} apart on the "
+          f"{int(kept.sum())} of {int(smask.sum())} samples that are well "
+          f"conditioned; from the CPU's frames {int(v.sum())} valid hands of "
+          f"the first {n} samples on both, geometry gap {gap:.2e} (the "
+          f"CPU's hand search {t_cpu:.2f} s; from the card's own frames "
+          f"{int(own.sum())} valid, {int((own != v).sum())} hands other "
+          f"than the CPU's); images of {int(g.valid.sum())} hands "
+          f"{out.shape}: max u8 diff {int(diff.max())}, share |diff|>1 = "
+          f"{frac:.2e} (gate 5e-3)")
+    if frac >= 5e-3:
+        fail(f"{label}: card images leave the CPU route's gate")
+
+
+def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
+              GraspDetector, DetectorConfig, CEMConfig, ImageGeometry,
+              CloudArrays, tmp):
+    """The 12-channel detector (DetectorConfig with 12 channels, every
+    other default; random init from seed 0: gpd_tpu ships no 12-channel
+    checkpoint), on a detector of its own, freed after it: a warm-up
+    request, then per scene of the 15-channel path graph_turns of detect
+    and request_turns; card_vs_cpu on scene 0; CEM's fused route against
+    its loop on scene 0 (cem_path); generate_view by route on one view of
+    each zoo object (datagen_turns). Returns {path: kernel wrapper calls,
+    or the kernels traced replays ran} and the raster_blocks launches a
+    request, a CEM request and a view ran."""
+    det = GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=12)), device="cuda")
+    if det.net.conv1.in_channels != 12:
+        fail(f"the 12-channel detector's net takes "
+             f"{det.net.conv1.in_channels} channels")
+    t0 = time.perf_counter()
+    p, cs, vp = scene(syn, 100)
+    det.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
+               generator=seeded(torch, 100), verbose=False)
+    print(f"12-channel warm-up request (preprocess_cloud + detect): "
+          f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
+    reset_counts(img)
+    ran, clouds = 0, []
+    for r in range(REQUESTS):
+        p, cs, vp = scene(syn, r)
+
+        def prep(d, p=p, cs=cs, vp=vp):
+            return d.preprocess_cloud(p, view_points=vp, cam_source=cs)
+        clouds.append(prep(det))
+        ran += graph_turns(
+            torch, img, profiling, det, lambda: det.detect(
+                clouds[-1], generator=seeded(torch, r), verbose=False),
+            f"12-channel request {r}", "raster_blocks",
+            os.path.join(tmp, f"detect12_{r}"))["raster_blocks"]
+        request_turns(torch, det, lambda: det.detect(
+            prep(det), generator=seeded(torch, r), verbose=False),
+            f"12-channel request {r}")
+    launches = counts(img)
+    print(f"launches on the 12-channel path: wrapper calls {launches} "
+          f"(warm-ups and captures, and {5 * REQUESTS} eager requests); "
+          f"{len(det.graphs)} graphs captured, pool "
+          f"{sum(e.pool_bytes for e in det.graphs.values())} bytes; traced "
+          f"replays ran {ran / REQUESTS:.2f} raster_blocks per request")
+    card_vs_cpu(torch, img, detector, det, clouds[0], "12-channel request 0")
+    cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig,
+                            [(0, cem.SUM_OF_GAUSSIANS)], "12-channel CEM")
+    units = datagen_units(torch, syn, det, CloudArrays)[::DATAGEN_VIEWS]
+    gen = datagen.DataGenerator(det, datagen.DataGenConfig())
+    reset_counts(img)
+    passes = datagen_turns(torch, img, datagen, gen, units,
+                           "data generation, 12 channels", "raster_blocks")
+    launches_gen = counts(img)
+    graph = passes["graph"][0]
+    per_view = [replayed_launches(det, g["keys"], "raster_blocks")
+                for g in graph]
+    shapes = {g["images"].shape[1:] for g in graph}
+    print(f"data generation, 12 channels: {len(units)} views, "
+          f"{sum(len(g['labels']) for g in graph)} instances a pass, images "
+          f"{shapes}; raster_blocks recorded by the captures of the keys "
+          f"each graph view replayed {per_view}, eager wrapper calls "
+          f"{[e['calls'] for e in passes['eager'][0]]}")
+    if shapes != {(60, 60, 12)}:
+        fail(f"12-channel generate_view gave images {shapes}")
+    del det, gen, passes, graph, clouds, units
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {
+        f"detect, 12 channels (wrapper calls: warm-ups, captures, "
+        f"{5 * REQUESTS} eager requests)": launches,
+        f"detect, 12 channels, graph route ({REQUESTS} traced replays, from "
+        f"the trace)": {"raster_blocks": ran, "raster_sums": 0,
+                        "raster_sums2": 0},
+        "CEM fused, 12 channels (1 traced replay, from the trace)":
+            cem_launches["fused"],
+        "CEM loop, 12 channels (2 requests)": cem_launches["loop"],
+        f"generate_view, 12 channels ({len(per_view)} views; wrapper calls: "
+        f"the warm pass's warm-ups and captures, two eager passes)":
+            launches_gen}
+    return by_path, per_view, dict(
+        request=ran / REQUESTS, cem=cem_launches["fused"]["raster_blocks"],
+        view=float(np.mean(per_view)))
+
+
+def path_1ch(torch, img, profiling, syn, pcd, detector, GraspDetector,
+             DetectorConfig, ImageGeometry, tmp):
+    """The 1-channel detect_file (the 3-channel path's single-camera PCD
+    scenes and options at 1 channel; random init from seed 0: gpd_tpu
+    ships no 1-channel checkpoint), on a detector of its own, freed after
+    it: a warm-up request, then per scene graph_turns of detect_file
+    (graph against eager in turns, one traced replay), then card_vs_cpu on
+    the first scene. Returns {path: kernel wrapper calls, or the kernels
+    traced replays ran} and the raster_sums launches a request ran."""
+    paths, cam = single_camera_scenes(syn, pcd, tmp, (100, 0, 1, 2))
+    det = GraspDetector(single_camera_config(DetectorConfig, ImageGeometry,
+                                             cam, 1), device="cuda")
+    t0 = time.perf_counter()
+    det.detect_file(paths[0], verbose=False, generator=seeded(torch, 100))
+    print(f"1-channel warm-up request (detect_file): "
+          f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
+    reset_counts(img)
+    ran = 0
+    for r, path in enumerate(paths[1:]):
+        ran += graph_turns(
+            torch, img, profiling, det, lambda: det.detect_file(
+                path, verbose=False, generator=seeded(torch, r)),
+            f"1-channel request {r} (detect_file, file read and preprocess "
+            f"included)", "raster_sums",
+            os.path.join(tmp, f"detect_file1_{r}"))["raster_sums"]
+    launches = counts(img)
+    print(f"launches on the 1-channel path: wrapper calls {launches} "
+          f"(warm-ups and captures, and {3 * REQUESTS} eager requests); "
+          f"{len(det.graphs)} graphs captured, pool "
+          f"{sum(e.pool_bytes for e in det.graphs.values())} bytes; traced "
+          f"replays ran {ran / REQUESTS:.2f} raster_sums per request")
+    card_vs_cpu(torch, img, detector, det, det.preprocess_cloud(
+        pcd.load_cloud_file(paths[1]), view_points=cam, capacity="serve"),
+        "1-channel request 0")
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"detect_file, 1 channel (wrapper calls: warm-ups, captures, "
+            f"{3 * REQUESTS} eager requests)": launches,
+            f"detect_file, 1 channel, graph route ({REQUESTS} traced "
+            f"replays, from the trace)": {"raster_blocks": 0,
+                                          "raster_sums": ran,
+                                          "raster_sums2": 0}}, \
+        ran / REQUESTS
+
+
+def widths_path(torch, img, profiling, syn, pcd, datagen, cem, detector,
+                GraspDetector, DetectorConfig, CEMConfig, ImageGeometry,
+                CloudArrays):
+    """Phase 20: path_12ch, then path_1ch. Returns {path: launches} of the
+    12-channel paths, of the 1-channel paths, the 12-channel per-view
+    launches and the launches a request ran at each width."""
+    with tempfile.TemporaryDirectory() as tmp:
+        by12, per_view, per12 = path_12ch(
+            torch, img, profiling, syn, datagen, cem, detector,
+            GraspDetector, DetectorConfig, CEMConfig, ImageGeometry,
+            CloudArrays, tmp)
+        by1, per1 = path_1ch(torch, img, profiling, syn, pcd, detector,
+                             GraspDetector, DetectorConfig, ImageGeometry,
+                             tmp)
+    return by12, by1, per_view, dict(per12, detect_file_1ch=per1)
+
+
 def classifier_only(torch, card, args):
     """``python3 chip_smoke.py classifier [OBJECTS VIEWS SCENES EPOCHS]``:
     the classifier pipeline phase alone at that depth (by default
@@ -3301,6 +3579,33 @@ def classifier_only(torch, card, args):
     print(json.dumps({"classifier": summary, "launches": launches}))
 
 
+def widths_only(torch, card):
+    """``python3 chip_smoke.py widths``: raster_blocks with and without
+    shadows against its plain version (timed), then phase 20 alone (the
+    12- and 1-channel paths); prints a summary line last."""
+    from gpd_tpu_torch import cem, datagen, detector, profiling
+    from gpd_tpu_torch.config import CEMConfig, DetectorConfig, ImageGeometry
+    from gpd_tpu_torch.core.types import CloudArrays
+    from gpd_tpu_torch.datasets import synthetic as syn
+    from gpd_tpu_torch.detector import GraspDetector
+    from gpd_tpu_torch.io import pcd
+    from gpd_tpu_torch.ops import _build
+    from gpd_tpu_torch.ops import images as img
+
+    t0 = time.perf_counter()
+    _build.build(["raster_blocks", "raster_sums", "pcd_ascii"])
+    _, free = check_raster(torch, img)
+    by12, by1, per_view, per_request = widths_path(
+        torch, img, profiling, syn, pcd, datagen, cem, detector,
+        GraspDetector, DetectorConfig, CEMConfig, ImageGeometry, CloudArrays)
+    print(card)
+    print(json.dumps({"widths": dict(
+        per_request, per_view_12ch=per_view, wall_s=time.perf_counter() - t0,
+        shadow_free={k: free[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "bound_ratio")}),
+        "launches": {**by12, **by1}}))
+
+
 def main():
     # One card: the first, unless the caller chose one.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -3317,6 +3622,8 @@ def main():
     print(card)
     if sys.argv[1:2] == ["classifier"]:
         return classifier_only(torch, card, [int(a) for a in sys.argv[2:]])
+    if sys.argv[1:2] == ["widths"]:
+        return widths_only(torch, card)
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -3354,8 +3661,8 @@ def main():
                     "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    entries = {"raster_blocks": check_raster(torch, img), **check_sums(
-        torch, img)}
+    shadow, free = check_raster(torch, img)
+    entries = {"raster_blocks": shadow, **check_sums(torch, img)}
     entries["raster_blocks"]["staged_chunk"] = check_raster_staged_chunk(
         torch, img)
 
@@ -3408,11 +3715,7 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         paths, cam = single_camera_scenes(syn, pcd, tmp, (100, 0, 1, 2))
-        cfg3 = DetectorConfig(
-            image_geometry=ImageGeometry(num_channels=3),
-            remove_outliers=True, sample_above_plane=True,
-            remove_plane_before_image_calculation=True,
-            camera_position=tuple(cam[0].tolist()))
+        cfg3 = single_camera_config(DetectorConfig, ImageGeometry, cam, 3)
         torch.cuda.reset_peak_memory_stats()
         det3 = GraspDetector(cfg3, device="cuda")
         launches3, replay3 = entry_point_3ch(
@@ -3461,6 +3764,10 @@ def main():
     by_path[f"classifier pipeline, 15 and 3 channels (gen_dataset's items "
             f"{CLASSIFIER_DEPTH} twice, training, AUC requests, sliced vs "
             f"native; wrapper calls: warm-ups and captures)"] = launches_q
+    by12, by1, per_view12, per_request = widths_path(
+        torch, img, profiling, syn, pcd, datagen, cem, detector,
+        GraspDetector, DetectorConfig, CEMConfig, ImageGeometry, CloudArrays)
+    by_path.update(by1)
 
     entries["raster_blocks"]["launches"] = launches15["raster_blocks"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
@@ -3469,6 +3776,25 @@ def main():
     for name, e in entries.items():
         e["launches_by_path"] = {path: launches[name]
                                  for path, launches in by_path.items()}
+    free["launches"] = next(iter(by12.values()))["raster_blocks"]
+    free["launches_by_path"] = {path: launches["raster_blocks"]
+                                for path, launches in by12.items()}
+    free["launches_by_path"].update({
+        "generate_view, 12 channels, graph route, per view (recorded by the "
+        "captures of the keys each view replayed; not traced)": per_view12,
+        "per 12-channel request, CEM request and view, graph route":
+            {k: per_request[k] for k in ("request", "cem", "view")}})
+    entries["raster_sums"]["launches_by_path"][
+        "detect_file, 1 channel, graph route, per request (from the "
+        "traces)"] = per_request["detect_file_1ch"]
+    print(f"raster_blocks shadow-free (12 channels): {free['ms']:.4f} ms, "
+          f"{free['bound_ratio']:.2f} x its bound {free['bound_ms']:.4f} ms, "
+          f"plain {free['plain_ms']:.4f} ms, index_put_ "
+          f"{free['library_ms']:.4f} ms; launches a 12-channel request "
+          f"{per_request['request']:.2f}, a CEM request {per_request['cem']}, "
+          f"a data-generation view {per_request['view']:.2f}; raster_sums "
+          f"launches a 1-channel detect_file "
+          f"{per_request['detect_file_1ch']:.2f}")
     entries["raster_blocks"]["launches_by_path"][
         "generate_view, 15 channels, eager route, per view (wrapper calls)"
     ] = per_view
@@ -3489,11 +3815,12 @@ def main():
     entries["raster_blocks"]["launches_by_path"][
         "classifier pipeline, one gen_dataset view, graph route (from its "
         "trace)"] = traced_q
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_ratio", "launches_by_path", "staged_chunk", "note")
+    keys = ("name", "shadows", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_ratio", "launches_by_path", "staged_chunk",
+            "note")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
-                                  for e in entries.values()]}))
+                                  for e in [*entries.values(), free]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

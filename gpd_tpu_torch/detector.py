@@ -138,6 +138,14 @@ def candidates_stage(cloud: CloudArrays, sample_pos: torch.Tensor,
     frames, fvalid = estimate_frames(
         sample_pos, sample_mask, cloud.points, cloud.mask, cloud.normals,
         radius=cfg.nn_radius_frames)
+    return hands_at_frames(cloud, sample_pos, frames, fvalid, cfg, host_reads)
+
+
+def hands_at_frames(cloud: CloudArrays, sample_pos: torch.Tensor,
+                    frames: torch.Tensor, fvalid: torch.Tensor,
+                    cfg: DetectorConfig, host_reads: bool = True) -> Grasps:
+    """Step 2 of detectGrasps at given local frames (S, 3, 3) and their
+    valid flags: the hand search, then the workspace/direction filters."""
     grasps = cand.search_hands_with_frames(cloud, sample_pos, frames, fvalid,
                                            cfg, host_reads)
     hg = cfg.hand_geometry

@@ -26,16 +26,18 @@ import gpd_tpu.detector as jdet  # noqa: E402
 import gpd_tpu.ops.images as jimg  # noqa: E402
 import gpd_tpu.ops.preprocess as jpp  # noqa: E402
 from gpd_tpu.config import DetectorConfig as JConfig  # noqa: E402
+from gpd_tpu.config import ImageGeometry as JImageGeometry  # noqa: E402
 from gpd_tpu.core.types import CloudArrays as JCloud  # noqa: E402
 from gpd_tpu.io.pcd import save_pcd  # noqa: E402
 from gpd_tpu_torch import datagen  # noqa: E402
 from gpd_tpu_torch import detector as tdet  # noqa: E402
 from gpd_tpu_torch.apps import generate_data, label_grasps  # noqa: E402
-from gpd_tpu_torch.config import DetectorConfig  # noqa: E402
+from gpd_tpu_torch.config import DetectorConfig, ImageGeometry  # noqa: E402
 from gpd_tpu_torch.core.types import CloudArrays  # noqa: E402
 from gpd_tpu_torch.io.pcd import load_cloud_file  # noqa: E402
 from gpd_tpu_torch.ops import draws  # noqa: E402
-from test_torch_detector import _interpret, image_gate, jax_noise  # noqa: E402
+from test_torch_detector import (  # noqa: E402
+    _interpret, image_gate, jax_noise, p0_params)
 
 SMALL = dict(num_samples=16, search_neighbors_cap=256, frame_neighbors_cap=32,
              normals_neighbors_cap=32, shadow_voxel_cap=256)
@@ -151,14 +153,20 @@ def jax_draws(key):
             mock.patch.object(draws, "shadow_noise", shadow))
 
 
-@pytest.mark.parametrize("min_pos", [1, 150])
-def test_generate_view_matches_gpd_tpu(min_pos):
+@pytest.mark.parametrize("min_pos,channels", [
+    pytest.param(1, 15, id="1"), pytest.param(150, 15, id="150"),
+    pytest.param(1, 12, id="1-12ch")])
+def test_generate_view_matches_gpd_tpu(min_pos, channels):
     """One attempt (min 1 positive) and two (min 150, about 100 positives an
     attempt): the same labels in the same balanced, permuted order, images
-    within the gate."""
+    within the gate. At 12 channels (no shadows, so no shadow draws; one
+    attempt) both packages take gpd_tpu's random-init weights."""
     (vp, vn), (mp, mn) = cylinder_clouds()
     gen_cfg = dict(min_grasps_per_view=min_pos, max_grasps_per_view=50)
-    jd = jdet.GraspDetector(JConfig(**SMALL))
+    params = None if channels == 15 else p0_params(channels)
+    jd = jdet.GraspDetector(JConfig(
+        image_geometry=JImageGeometry(num_channels=channels), **SMALL),
+        params=params)
     key = jax.random.PRNGKey(0)
     jax.clear_caches()
     try:
@@ -172,7 +180,9 @@ def test_generate_view_matches_gpd_tpu(min_pos):
                 np.random.default_rng(5))
     finally:
         jax.clear_caches()
-    td = tdet.GraspDetector(DetectorConfig(**SMALL), device="cpu")
+    td = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels), **SMALL),
+        params=params, device="cpu")
     gen = datagen.DataGenerator(td, datagen.DataGenConfig(**gen_cfg))
     sub, shadow = jax_draws(key)
     with sub, shadow:
@@ -182,7 +192,7 @@ def test_generate_view_matches_gpd_tpu(min_pos):
             torch.Generator(), np.random.default_rng(5))
     assert gen.last_counts["attempts"] == (1 if min_pos == 1 else 2)
     assert len(tl) > 0 and 2 * tl.sum() == len(tl)
-    assert tl.dtype == jl.dtype
+    assert tl.dtype == jl.dtype and ti.shape[-1] == channels
     np.testing.assert_array_equal(tl, jl)
     image_gate(ji, ti)
 

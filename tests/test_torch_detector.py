@@ -2,7 +2,7 @@
 CPU, and properties of the port itself.
 
 The slice: GraspDetector.preprocess_cloud + detect of both packages, on
-two-camera scenes, at 15, 3 and 1 channels.
+two-camera scenes, at 15, 12, 3 and 1 channels.
 
   - Scanned rods on a table: the voxelized clouds must be identical; detect
     then runs on gpd_tpu's preprocessed cloud in both packages, because the
@@ -17,9 +17,10 @@ two-camera scenes, at 15, 3 and 1 channels.
 Both detects get the same sample positions (taken where gpd_tpu's local
 frame is defined), gpd_tpu's draws injected through
 gpd_tpu_torch.ops.draws, and the same weights (the packaged 15- and
-3-channel checkpoints; one random-init dict at 1 channel). gpd_tpu runs its
-accelerator routes, the Pallas rasters in interpret mode. The selected
-grasps must be the same set, positions within 1e-5 and scores within 1e-3.
+3-channel checkpoints; one random-init dict at 12 and 1 channels).
+gpd_tpu runs its accelerator routes, the Pallas rasters in interpret mode.
+The selected grasps must be the same set, positions within 1e-5 and scores
+within 1e-3.
 
 The preprocessing options (statistical outliers, RANSAC plane fits,
 sampling above the plane, plane removal before the images), the serving
@@ -206,11 +207,19 @@ def assert_same_selection(gj, gt):
     np.testing.assert_allclose(gj.score[vj][oj], gt.score[vt][ot], atol=1e-3)
 
 
-def test_whole_slice_selects_the_same_grasps():
+def whole_slice_on_rods(channels):
+    """preprocess_cloud + detect of both packages on the rod scene at 15
+    (the packaged weights) or 12 channels (gpd_tpu's random init, carried
+    across): identical clouds, then the same selection on gpd_tpu's."""
     p, cs, vp = rod_scene(2)
     kw = dict(num_samples=64, image_neighbors_cap=256, num_selected=12)
-    jd = jdet.GraspDetector(JConfig(**kw))
-    td = tdet.GraspDetector(DetectorConfig(**kw), device="cpu")
+    params = None if channels == 15 else p0_params(channels)
+    jd = jdet.GraspDetector(JConfig(
+        image_geometry=JImageGeometry(num_channels=channels), **kw),
+        params=params)
+    td = tdet.GraspDetector(DetectorConfig(
+        image_geometry=ImageGeometry(num_channels=channels), **kw),
+        params=params, device="cpu")
     jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
     tc = td.preprocess_cloud(p, view_points=vp, cam_source=cs)
     np.testing.assert_array_equal(np.asarray(jc.points), tc.points.numpy())
@@ -226,6 +235,16 @@ def test_whole_slice_selects_the_same_grasps():
         gt = td.detect(tc, T(spos), T(smask), verbose=False).to_host()
     assert td.last_counts["candidates"] >= 64    # clustering sees no -inf row
     assert_same_selection(gj, gt)
+
+
+def test_whole_slice_selects_the_same_grasps():
+    whole_slice_on_rods(15)
+
+
+def test_whole_slice_selects_the_same_grasps_at_12_channels():
+    """The shadow-free raster_blocks route: gpd_tpu's test_12_channel_path
+    on the repo's own scene."""
+    whole_slice_on_rods(12)
 
 
 def lattice_shell():
@@ -458,8 +477,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def p0_params(channels):
     """The packaged 3-channel checkpoint, or one random-init parameter dict
-    (gpd_tpu's init_params) as numpy arrays for 1 channel, which has no
-    packaged checkpoint."""
+    (gpd_tpu's init_params) as numpy arrays for 1 or 12 channels, which
+    have no packaged checkpoint."""
     if channels == 3:
         return None
     return {k: np.asarray(v) for k, v in
@@ -725,18 +744,21 @@ def image_gate(a, b):
     assert (diff > 1).mean() < 5e-3, (diff > 1).mean()
 
 
-@pytest.mark.parametrize("channels", [15, 3])
+@pytest.mark.parametrize("channels", [15, 12, 3, 1])
 def test_score_candidates_keeps_images(channels):
     """score_candidates(scores_only=False) against gpd_tpu's: the same
     valid-first order and scores, images within the gate, zeros past the
-    live chunks; scores_only=True gives the same grasps and no images."""
+    live chunks; scores_only=True gives the same grasps and no images. 12
+    and 1 channels have no packaged weights: gpd_tpu's random init."""
     p, cs, vp = rods_only(7)
     kw = dict(num_samples=48, image_neighbors_cap=256, **ROD_KW)
+    params = None if channels in (15, 3) else p0_params(channels)
     jd = jdet.GraspDetector(JConfig(
-        image_geometry=JImageGeometry(num_channels=channels), **kw))
+        image_geometry=JImageGeometry(num_channels=channels), **kw),
+        params=params)
     td = tdet.GraspDetector(DetectorConfig(
         image_geometry=ImageGeometry(num_channels=channels), **kw),
-        device="cpu")
+        params=params, device="cpu")
     jc = jd.preprocess_cloud(p, view_points=vp, cam_source=cs)
     tc = port_cloud(jc)
     cfg_j = jd.effective_config(jc)
