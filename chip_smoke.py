@@ -54,7 +54,11 @@ Phases; any failure exits non-zero and prints no result line:
      0's scene once more through detect with sync_stages (the eager
      route), so each stage's time is its own (host clock). Per scene
      last, whole requests (preprocess_cloud + detect) by the graph routes
-     and the eager routes in turns, beside the 100 ms request limit;
+     and the eager routes in turns, beside the 100 ms request limit. On
+     request 0's scene, radius_neighbors over detect's samples at the image
+     neighbourhoods' radius and cap with exact=False, exact=True and under
+     FORCE_EXACT must give identical indices and masks (gpd_tpu's
+     exact=False route is an exact sort and slice off a TPU);
   5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
      scenes, one warm-up, then per scene with SUM_OF_GAUSSIANS and for
      request 0's scene with MAX_OF_GAUSSIANS the fused route (the default
@@ -3313,6 +3317,53 @@ def single_camera_config(DetectorConfig, ImageGeometry, cam, channels):
         camera_position=tuple(cam[0].tolist()))
 
 
+def neighbor_routes(torch, det, cloud, label):
+    """gpd_tpu's nearest-K routes on the card: radius_neighbors over
+    detect's samples (seed 0) at the image neighbourhoods' radius and cap,
+    which sorts (the cap is below the cloud's size), with exact=False,
+    exact=True, and exact=False under FORCE_EXACT, must give identical idx
+    and valid. Off a TPU gpd_tpu's exact=False route is XLA's sort and
+    slice, so the port runs one selection for all three."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    cfg = det.effective_config(cloud)
+    spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
+    k = cfg.image_neighbors_cap
+    if k >= cloud.capacity:
+        fail(f"{label}: cap {k} covers the {cloud.capacity}-point cloud, so "
+             f"radius_neighbors would sort nothing")
+
+    def run(exact):
+        return nbr.radius_neighbors(spos, smask, cloud.points, cloud.mask,
+                                    radius=cfg.image_radius, k=k,
+                                    exact=exact)
+    approx = nbr._use_approx(cloud.points.device)
+    t0 = time.perf_counter()
+    out = {"exact=False": run(False), "exact=True": run(True)}
+    was = nbr.FORCE_EXACT
+    nbr.FORCE_EXACT = True
+    try:
+        forced = nbr._use_approx(cloud.points.device)
+        out["FORCE_EXACT"] = run(False)
+    finally:
+        nbr.FORCE_EXACT = was
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    idx, valid = out["exact=True"]
+    same = [name for name, (i, v) in out.items()
+            if torch.equal(i, idx) and torch.equal(v, valid)]
+    if not (idx.is_cuda and approx and not forced and len(same) == 3
+            and valid.any()):
+        fail(f"{label}: neighbour routes differ (equal to exact=True: "
+             f"{same}; gpd_tpu's approximate route {approx}, under "
+             f"FORCE_EXACT {forced}; {int(valid.sum())} in radius)")
+    print(f"{label}, neighbour routes on the card: radius_neighbors of "
+          f"{spos.shape[0]} samples over {cloud.capacity} points, k {k}, "
+          f"radius {cfg.image_radius}: exact=False (gpd_tpu's approx_min_k "
+          f"route here), exact=True and FORCE_EXACT give identical idx "
+          f"{tuple(idx.shape)} and valid ({int(valid.sum())} in radius); "
+          f"the three calls {ms:.2f} ms (host clock)")
+
+
 def well_conditioned(torch, cloud, spos, smask, radius, min_gap=0.05):
     """``smask`` kept where the local frame is well conditioned: (l1 - l0)
     / l2 > min_gap for the eigenvalues of sum n n^T over the cloud's points
@@ -3677,6 +3728,8 @@ def main():
     stage_breakdown(torch, det, lambda: det.preprocess_cloud(
         p, view_points=vp, cam_source=cs), img.raster_blocks,
         "15 channels, request 0 scene")
+    neighbor_routes(torch, det, det.preprocess_cloud(
+        p, view_points=vp, cam_source=cs), "15 channels, request 0 scene")
     cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig)
     by_path = {"detect, 15 channels (wrapper calls: warm-ups, captures, "
                "15 eager requests)": launches15,

@@ -211,7 +211,7 @@ def _per_sample_inputs(cloud: CloudArrays, img_mask: torch.Tensor,
     else:
         nn_idx, nn_valid = nbr.radius_neighbors(
             sample_pos, sample_mask, cloud.points, img_mask,
-            radius=cfg.image_radius, k=k_img)
+            radius=cfg.image_radius, k=k_img, exact=True)
         nn_d2 = None
 
     if cfg.image_geometry.num_channels != 15:
@@ -224,7 +224,7 @@ def _per_sample_inputs(cloud: CloudArrays, img_mask: torch.Tensor,
         if nn_d2 is None:
             nn_d2 = nbr.sum_sq3(sample_pos[:, None, :] - cloud.points[nn_idx])
         negd, src_pos = nbr.select_max_k(
-            torch.where(nn_valid, -nn_d2, -torch.inf), sc)
+            torch.where(nn_valid, -nn_d2, -torch.inf), sc, exact=True)
         src_idx = (src_pos if nn_idx is None
                    else torch.gather(nn_idx, 1, src_pos))
         src_valid = negd > -torch.inf
@@ -702,10 +702,13 @@ class GraspDetector:
                          view_points: Optional[np.ndarray] = None,
                          cam_source: Optional[np.ndarray] = None,
                          normals: Optional[np.ndarray] = None,
+                         generator: Optional[torch.Generator] = None,
                          capacity=None) -> CloudArrays:
         """removeNans -> filterWorkspace -> voxelize -> [removeOutliers] ->
         normals(+reverse) -> [refine] (candidates_generator.cpp:14-37).
         Returns a compacted CloudArrays on the detector's device.
+        ``generator`` stands where gpd_tpu takes ``key``, and is unused as
+        that is: preprocessing draws nothing.
 
         ``capacity`` pins the padded size of every stage; ``"serve"`` takes
         each stage's ``serve_capacity`` bucket, as gpd_tpu's serving entry
@@ -723,6 +726,7 @@ class GraspDetector:
         cloud is a copy. On the CPU the same programs run eagerly. The test
         hook ``_force_eager`` runs them eagerly on a card too. The request
         is one span, ``preprocess``."""
+        del generator
         cfg = self.cfg
         serve = capacity == "serve"
         points = np.asarray(points, np.float32).reshape(-1, 3)

@@ -261,7 +261,7 @@ def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
             nrm = normals[None, :, :].expand(rel.shape)
         else:
             idx, nvalid = radius_neighbors(spos_b, fval_b, points, pmask,
-                                           radius=radius, k=k)
+                                           radius=radius, k=k, exact=True)
             rel = points[idx] - spos_b[:, None, :]
             nrm = normals[idx]
         return _eval_orientations(rel, nrm, nvalid, frames_b, rfix, params)
@@ -349,7 +349,7 @@ def _reevaluate_block(points, normals, pmask, g_sample, g_R, g_top, g_mid,
     exact radius neighbourhood (a dropped contact point would flip a
     label). Returns (full, half) antipodal flags."""
     idx, nvalid = radius_neighbors(g_sample, g_valid, points, pmask,
-                                   radius=radius, k=k)
+                                   radius=radius, k=k, exact=True)
     rel = points[idx] - g_sample[:, None, :]
     pts = torch.einsum("gkj,gji->gki", rel, g_R)
     ny = torch.einsum("gkj,gj->gk", normals[idx], g_R[..., :, 1])

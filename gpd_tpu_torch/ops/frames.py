@@ -22,15 +22,19 @@ from gpd_tpu_torch.ops.neighbors import radius_moments
 
 def estimate_frames(sample_pos: torch.Tensor, sample_mask: torch.Tensor,
                     points: torch.Tensor, points_mask: torch.Tensor,
-                    normals: torch.Tensor, radius: float,
+                    normals: torch.Tensor, radius: float, k: int = 64,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Local frames at sample positions.
+
+    ``k`` is accepted and unused, as in gpd_tpu: the moment matmul covers
+    every in-radius neighbor (frame_estimator.cpp:74).
 
     Returns:
       frames: (S, 3, 3) with columns [normal, binormal, curvature_axis].
       valid: (S,) bool, sample had >= 1 neighbor within radius
         (frame_estimator.cpp:74-86).
     """
+    del k
     n = normals
     feats = torch.stack([
         n[:, 0] * n[:, 0], n[:, 1] * n[:, 1], n[:, 2] * n[:, 2],

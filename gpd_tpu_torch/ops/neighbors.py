@@ -5,15 +5,27 @@ tensor work:
 
     dist^2(q, p) = |q|^2 + |p|^2 - 2 q . p
 
-The cross term is a (Q, 3) x (3, N) matmul in full float32. Only the exact
-nearest-K path is ported (gpd_tpu's ``approx_min_k`` is TPU-only). Ties
-break toward the lower index, as ``lax.top_k`` does: a stable sort gives
-that, ``torch.topk`` does not promise it, and on voxel grids equal distances
-are common.
+The cross term is a (Q, 3) x (3, N) matmul in full float32. Ties break
+toward the lower index, as ``lax.top_k`` does: a stable sort gives that,
+``torch.topk`` does not promise it, and on voxel grids equal distances are
+common.
+
+gpd_tpu's nearest-K selection has two routes: ``exact=True`` (or
+``FORCE_EXACT``) takes ``lax.top_k``; ``exact=False`` takes
+``lax.approx_min_k`` / ``approx_max_k`` on every backend but the CPU
+(``_use_approx``). Only the TPU lowers those to an approximate selection:
+off a TPU they fall back to sort and slice (jax/_src/lax/ann.py:16-17, the
+TPU lowering registered for ``platform='tpu'`` only, :398-401), an exact
+selection. So on the card both of gpd_tpu's routes select the true nearest
+k, and the port runs the same stable sort for either. (The fallback's sort
+is not marked stable, so where equal values straddle the k-th place XLA
+leaves the order of their indices open; the stable order is
+``lax.top_k``'s.)
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -21,17 +33,34 @@ import torch
 
 _BIG = 1e12
 
+# gpd_tpu's switch that sends every nearest-K selection to the exact route
+# (gpd_tpu/ops/neighbors.py:34), read from the same variable. In the port
+# both routes compute the same selection, so it changes only what
+# ``_use_approx`` reports.
+FORCE_EXACT = os.environ.get("GPD_TPU_EXACT_NEIGHBORS", "") == "1"
 
-def select_min_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+
+def _use_approx(device) -> bool:
+    """gpd_tpu's backend rule (gpd_tpu/ops/neighbors.py:37-48): whether a
+    call with ``exact=False`` on ``device`` takes gpd_tpu's approximate
+    route, i.e. on every device but the CPU unless ``FORCE_EXACT``. On a
+    GPU that route is the exact sort and slice (module docstring)."""
+    return (not FORCE_EXACT) and torch.device(device).type != "cpu"
+
+
+def select_min_k(d2: torch.Tensor, k: int, exact: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k of each row of ``d2``: (vals, idx), ascending, ties toward
-    the lower index."""
+    the lower index. ``exact`` is gpd_tpu's route choice; both routes give
+    the true nearest k (module docstring)."""
     vals, idx = torch.sort(d2, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 
 
-def select_max_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def select_max_k(x: torch.Tensor, k: int, exact: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Largest-k of each row of ``x``: (vals, idx), descending, ties toward
-    the lower index."""
+    the lower index; ``exact`` as in select_min_k."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -76,8 +105,10 @@ def _block_topk(qpos, qmask, points, pmask, k: int):
 def radius_neighbors(query: torch.Tensor, query_mask: torch.Tensor,
                      points: torch.Tensor, points_mask: torch.Tensor,
                      radius: float, k: int, block: int = 1024,
+                     exact: bool = False,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Padded exact radius search.
+    """Padded exact radius search (``exact``: gpd_tpu's route choice, the
+    same selection either way; see select_min_k).
 
     Returns (idx, valid): (Q, k) int64 neighbor indices sorted by distance
     ascending, and (Q, k) bool marking entries within ``radius`` (inclusive,

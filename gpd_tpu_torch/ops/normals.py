@@ -63,8 +63,11 @@ def _normals_kernel(points, mask, cam_source, view_points, radius: float):
     return torch.where((mask & (counts > 0))[:, None], normal, 0.0)
 
 
-def estimate_normals(cloud: CloudArrays, radius: float) -> CloudArrays:
-    """Estimate + orient normals for every masked point."""
+def estimate_normals(cloud: CloudArrays, radius: float, k: int = 128
+                     ) -> CloudArrays:
+    """Estimate + orient normals for every masked point. ``k`` is accepted
+    and unused, as in gpd_tpu: the moments cover every in-radius point."""
+    del k
     normals = _normals_kernel(cloud.points, cloud.mask, cloud.cam_source,
                               cloud.view_points, radius)
     return dataclasses.replace(cloud, normals=normals)
@@ -100,7 +103,8 @@ def refine_normals(points, normals, mask, k: int = 10,
     device freezes ``cur`` from the iteration after the one whose RMS change
     fell below ``convergence_rms``. That equals stopping there, and nothing
     is read back to the host, so a CUDA graph can hold the loop."""
-    idx, valid = radius_neighbors(points, mask, points, mask, radius=1e5, k=k)
+    idx, valid = radius_neighbors(points, mask, points, mask, radius=1e5, k=k,
+                                  exact=True)
     vmaskf = valid[..., None].to(normals.dtype)
     n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
     cur = normals

@@ -45,6 +45,9 @@ from gpd_tpu_torch.ops import draws
 from test_torch_detector import (T, _interpret, frame_gap_ok, inject,
                                  lattice_shell, port_cloud)
 from test_torch_io import ascii_pcd
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 KW = dict(num_samples=32, voxelize=False, normals_radius=0.008,
           nn_radius_frames=0.015, num_selected=12)

@@ -24,6 +24,9 @@ from gpd_tpu_torch.config import DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import candidates as cand
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 MASKS = ("valid", "full_antipodal", "half_antipodal")
 VALUES = ("position", "orientation", "width", "bottom", "top", "center")

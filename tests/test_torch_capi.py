@@ -33,6 +33,9 @@ from gpd_tpu_torch import capi
 from gpd_tpu_torch.ops import _build, draws
 from test_torch_detector import frame_gap_ok, lattice_shell
 from test_torch_io import ascii_pcd
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 CFG = """\
 image_num_channels = 3

@@ -44,6 +44,9 @@ from test_torch_detector import (ROD_KW, T, _interpret,
                                  assert_same_selection, frame_gap_ok,
                                  jax_noise, lattice_shell, port_cloud,
                                  rods_only)
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 
 def gen(seed):

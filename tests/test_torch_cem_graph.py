@@ -20,6 +20,9 @@ from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.ops import images as img
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 CEM_KW = dict(num_init_samples=24, num_iterations=2,
               num_samples_per_iteration=20)

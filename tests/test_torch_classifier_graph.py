@@ -24,6 +24,9 @@ from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import candidates as cand
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 QUALITY = dict(min_inliers=0, weights_file="")
 

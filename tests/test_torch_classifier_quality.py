@@ -43,6 +43,9 @@ from test_classifier_quality import _auc
 from test_images import np_normals_image, np_unit_and_cells
 from test_torch_detector import (ROD_KW, T, image_gate, inject, port_cloud,
                                  rods_only, sample_where_frames_defined)
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 QUALITY = dict(min_inliers=0, weights_file="")
 

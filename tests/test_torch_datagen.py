@@ -38,6 +38,9 @@ from gpd_tpu_torch.io.pcd import load_cloud_file  # noqa: E402
 from gpd_tpu_torch.ops import draws  # noqa: E402
 from test_torch_detector import (  # noqa: E402
     _interpret, image_gate, jax_noise, p0_params)
+from test_torch_threads import set_cpu_share  # noqa: E402
+
+set_cpu_share()
 
 SMALL = dict(num_samples=16, search_neighbors_cap=256, frame_neighbors_cap=32,
              normals_neighbors_cap=32, shadow_voxel_cap=256)

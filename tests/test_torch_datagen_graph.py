@@ -29,6 +29,9 @@ from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 SMALL = dict(search_neighbors_cap=256, frame_neighbors_cap=32,
              normals_neighbors_cap=32, shadow_voxel_cap=256)

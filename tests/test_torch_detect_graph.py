@@ -31,6 +31,9 @@ from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 
 def gen(seed):

@@ -56,6 +56,9 @@ from gpd_tpu_torch.core.types import CloudArrays, Grasps
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops import preprocess as tpp
+from test_torch_threads import set_cpu_share, share_env
+
+set_cpu_share()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -435,7 +438,7 @@ def test_imports_neither_jax_nor_gpd_tpu():
             "assert 'libpcd_ascii' in maps and 'libgpd_native' not in maps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gpd_tpu')]; print(bad); sys.exit(bool(bad))")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=share_env(),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -457,7 +460,8 @@ def test_every_module_imports_without_triton_or_nvcc():
         "    print(len(names))\n"
         "else:\n"
         "    sys.exit('nvcc found')\n")
-    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    env = share_env(dict(os.environ, PATH="/usr/bin:/bin",
+                         CUDA_HOME="/nonexistent"))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -32,6 +32,9 @@ from gpd_tpu.config import ImageGeometry as JImageGeometry
 from gpd_tpu_torch.config import ImageGeometry
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import images as img
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 SIZE = 60
 

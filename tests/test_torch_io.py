@@ -29,6 +29,9 @@ from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.io import pcd
 from gpd_tpu_torch.ops import draws
 from test_torch_detector import frame_gap_ok, lattice_shell
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 
 def cloud(seed, n=500):

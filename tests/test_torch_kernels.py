@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from gpd_tpu_torch.ops import images as img
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 SIZE = 60
 

@@ -13,6 +13,9 @@ import torch
 
 from gpd_tpu.net import lenet as jlenet
 from gpd_tpu_torch.net import lenet
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 
 def images(channels, n=6, seed=0):

@@ -10,6 +10,7 @@ reference's frame axes depend on float summation order; ROADMAP.md C).
 
 import dataclasses
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,9 @@ from gpd_tpu_torch.core.types import CloudArrays, Samples, _next_size
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.ops import eigh3, frames, neighbors, normals, preprocess
 from gpd_tpu_torch.ops import draws
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 
 def T(a):
@@ -56,23 +60,88 @@ def cloud_pair(points, view_points=None, cam_source=None, normals_=None):
     return j, t
 
 
+# gpd_tpu's nearest-K routes: exact=True, exact=False, and exact=False
+# with FORCE_EXACT set. The exact=True cases keep the ids they had before
+# the port took ``exact``.
+ROUTES = {"exact=True": (True, False), "exact=False": (False, False),
+          "FORCE_EXACT": (False, True)}
+
+
+def _route_cases(shapes):
+    return [pytest.param(*shape, route, id="-".join(map(str, shape)) + (
+        "" if route == "exact=True" else "-" + route))
+        for route in ROUTES for shape in shapes]
+
+
 class TestNeighbors:
-    @pytest.mark.parametrize("n,q,k,block", [
+    @pytest.mark.parametrize("n,q,k,block,route", _route_cases([
         (700, 50, 64, 1024),      # single block
         (1500, 300, 96, 128),     # blocked queries
         (400, 60, 512, 1024),     # cap covers the cloud: identity indices
-    ])
-    def test_radius_neighbors_identical(self, n, q, k, block):
+    ]))
+    def test_radius_neighbors_identical(self, n, q, k, block, route,
+                                        monkeypatch):
+        """radius_neighbors, and select_min_k / select_max_k on the grid's
+        tie-rich distances, equal gpd_tpu's same call on each route."""
+        exact, force = ROUTES[route]
+        monkeypatch.setattr(jnbr, "FORCE_EXACT", force)
+        monkeypatch.setattr(neighbors, "FORCE_EXACT", force)
+        assert neighbors._use_approx("cpu") is jnbr._use_approx() is False
+        assert neighbors._use_approx("cuda") is not force
         rng = np.random.default_rng(n + q)
         p, pm, qp, qm = grid_cloud(rng, n, q)
         ij, vj = jnbr.radius_neighbors(jnp.asarray(qp), jnp.asarray(qm),
                                        jnp.asarray(p), jnp.asarray(pm),
-                                       0.05, k, block=block, exact=True)
+                                       0.05, k, block=block, exact=exact)
         it, vt = neighbors.radius_neighbors(T(qp), T(qm), T(p), T(pm), 0.05,
-                                            k, block=block)
+                                            k, block=block, exact=exact)
         np.testing.assert_array_equal(np.asarray(vj), vt.numpy())
         np.testing.assert_array_equal(np.asarray(ij), it.numpy())
         assert vt.sum() > 0
+
+        d2 = np.sum((qp[:, None, :] - p[None, :, :]) ** 2, axis=-1)
+        kk = min(k, n)
+        for jsel, tsel, x in [(jnbr.select_min_k, neighbors.select_min_k, d2),
+                              (jnbr.select_max_k, neighbors.select_max_k,
+                               -d2)]:
+            jv, ji = jax.jit(jsel, static_argnums=(1, 2))(jnp.asarray(x), kk,
+                                                          exact)
+            tv, ti = tsel(T(x), kk, exact=exact)
+            np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+            np.testing.assert_allclose(np.asarray(jv), tv.numpy(), rtol=0,
+                                       atol=1e-6)
+        assert (np.diff(np.sort(d2, axis=1)[:, :kk], axis=1) == 0).any()
+
+    def test_approx_route_off_a_tpu_is_exact(self):
+        """gpd_tpu's approximate route off a TPU, jax.lax.approx_min_k /
+        approx_max_k lowered to their sort-and-slice fallback (here on the
+        CPU, as on a GPU), selects the values the port's selection does; on
+        distinct values, the same indices too."""
+        rng = np.random.default_rng(3)
+        tied = rng.integers(0, 40, (64, 700)).astype(np.float32)
+        distinct = rng.permutation(64 * 700).reshape(64, 700).astype(
+            np.float32)
+        for x in (tied, distinct):
+            for approx, sel in [
+                    (jax.lax.approx_min_k, neighbors.select_min_k),
+                    (jax.lax.approx_max_k, neighbors.select_max_k)]:
+                jv, ji = jax.jit(approx, static_argnums=1)(jnp.asarray(x), 48)
+                tv, ti = sel(T(x), 48, exact=False)
+                np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+                if x is distinct:
+                    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+
+    def test_force_exact_reads_gpd_tpu_variable(self, monkeypatch):
+        """FORCE_EXACT comes from GPD_TPU_EXACT_NEIGHBORS at import, as in
+        gpd_tpu."""
+        was = neighbors.FORCE_EXACT
+        try:
+            for value, want in [("1", True), ("0", False)]:
+                monkeypatch.setenv("GPD_TPU_EXACT_NEIGHBORS", value)
+                assert importlib.reload(neighbors).FORCE_EXACT is want
+                assert neighbors._use_approx("cuda") is not want
+        finally:
+            neighbors.FORCE_EXACT = was
 
     def test_radius_mask_identical(self):
         p, pm, qp, qm = grid_cloud(np.random.default_rng(1), 900, 120)
@@ -289,6 +358,27 @@ class TestNormalsAndFrames:
         assert ok.sum() >= S // 4
         np.testing.assert_allclose(np.asarray(fj)[ok], ft.numpy()[ok],
                                    atol=1e-5)
+
+    @pytest.mark.parametrize("op", ["estimate_frames", "estimate_normals"])
+    def test_k_is_accepted_and_unused(self, op):
+        """gpd_tpu takes ``k`` at the same place and drops it; a call with
+        it equals the call without, bit for bit."""
+        _, tc = cylinder(0.015)
+        if op == "estimate_normals":
+            want = normals.estimate_normals(tc, 0.03).normals
+            got = normals.estimate_normals(tc, 0.03, 7).normals
+            np.testing.assert_array_equal(want.numpy(), got.numpy())
+            got = normals.estimate_normals(tc, 0.03, k=300).normals
+            np.testing.assert_array_equal(want.numpy(), got.numpy())
+            return
+        cloud = normals.estimate_normals(tc, 0.03)
+        args = (cloud.points[:40], cloud.mask[:40], cloud.points, cloud.mask,
+                cloud.normals, 0.01)
+        want = frames.estimate_frames(*args)
+        for got in (frames.estimate_frames(*args, 5),
+                    frames.estimate_frames(*args, k=300)):
+            for a, b in zip(want, got):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def frame_gap_ok(jcloud, spos, radius, min_gap=0.05):

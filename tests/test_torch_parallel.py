@@ -48,6 +48,9 @@ from gpd_tpu_torch.detector import GraspDetector, detect_core
 from gpd_tpu_torch.net import lenet, train
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.parallel import multihost, sharded
+from test_torch_threads import set_cpu_share, share_env
+
+set_cpu_share()
 
 if __name__ != "__main__":       # the pytest side; the rank workers import
     import jax                   # no JAX
@@ -188,7 +191,7 @@ def training_data(n, seed):
 
 def worker(store, rank, world, replay_path, out_dir):
     """One rank of the two-process group: every part below is SPMD."""
-    torch.set_num_threads(2)
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
     rank, world = int(rank), int(world)
     device = multihost.initialize(f"file://{store}", world, rank,
                                   device="cpu")
@@ -383,9 +386,9 @@ def runs(tmp_path_factory):
     np.savez(replay, idx0=cem_replay["idx0"], x=x, y=y,
              **{f"round{i}": r for i, r in enumerate(cem_replay["rounds"])},
              **{"p_" + k: v for k, v in params.items()})
-    env = dict(os.environ, OMP_NUM_THREADS="2",
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                              ""))
+    env = share_env(dict(os.environ, OMP_NUM_THREADS="2",
+                         PYTHONPATH=REPO + os.pathsep
+                         + os.environ.get("PYTHONPATH", "")))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(tmp / "store"),
          str(r), str(WORLD), replay, str(tmp)], env=env, cwd=str(tmp),

@@ -33,6 +33,9 @@ from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.net import lenet, train
 from gpd_tpu_torch.ops import images as img
 from gpd_tpu_torch.parallel import multihost, sharded
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 # A world of one without a process group: no collective runs.
 ONE = sharded.Mesh(None, 0, 1, None)

@@ -27,6 +27,9 @@ from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.ops import normals as tnormals
 from gpd_tpu_torch.ops.neighbors import radius_neighbors
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 LATTICE_VOXEL = 1.0 / 512
 

@@ -32,6 +32,9 @@ from gpd_tpu.net import lenet as jlenet  # noqa: E402
 from gpd_tpu_torch.net import lenet  # noqa: E402
 from gpd_tpu_torch.tools import (gen_dataset, slice_channels,  # noqa: E402
                                  train_classifier)
+from test_torch_threads import set_cpu_share  # noqa: E402
+
+set_cpu_share()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

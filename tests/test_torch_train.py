@@ -27,6 +27,9 @@ from gpd_tpu.net import lenet as jlenet  # noqa: E402
 from gpd_tpu.net import train as jtrain  # noqa: E402
 from gpd_tpu_torch.apps import hdf5_tools, train_net  # noqa: E402
 from gpd_tpu_torch.net import lenet, train  # noqa: E402
+from test_torch_threads import set_cpu_share  # noqa: E402
+
+set_cpu_share()
 
 NAMES = {"conv1_w": "conv1.weight", "conv1_b": "conv1.bias",
          "conv2_w": "conv2.weight", "conv2_b": "conv2.bias",

@@ -19,6 +19,9 @@ import pytest
 import torch
 
 from gpd_tpu_torch.net import lenet, train
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 LR = 1e-3
 

@@ -31,6 +31,9 @@ from gpd_tpu_torch.config import DetectorConfig
 from gpd_tpu_torch.core.types import Grasps
 from gpd_tpu_torch.io.pcd import save_pcd
 from test_torch_detector import frame_gap_ok
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 pytest.importorskip("matplotlib")
 

@@ -29,6 +29,9 @@ from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.apps import convert_weights
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.net import lenet, onnx_io
+from test_torch_threads import set_cpu_share
+
+set_cpu_share()
 
 TORCH_NAMES = {v: k for k, v in lenet.TORCH_NAMES.items()}
 
