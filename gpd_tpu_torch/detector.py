@@ -725,35 +725,44 @@ class GraspDetector:
         into the detector's one pool (``CapturedGraph``); the returned
         cloud is a copy. On the CPU the same programs run eagerly. The test
         hook ``_force_eager`` runs them eagerly on a card too. The request
-        is one span, ``preprocess``."""
+        is one span, ``preprocess``, from the finite filter on; inside it
+        the spans ``preprocess_upload``, each program's (by its name) and
+        ``preprocess_compact`` (``profiling``)."""
         del generator
-        cfg = self.cfg
-        serve = capacity == "serve"
-        points = np.asarray(points, np.float32).reshape(-1, 3)
-        finite = np.isfinite(points).all(axis=1)
-        points = points[finite]
-        if normals is not None:
-            normals = np.asarray(normals, np.float32).reshape(-1, 3)[finite]
-        if cam_source is not None:
-            cam_source = np.asarray(cam_source)[..., finite]
-
-        def compact(c):
-            if serve:
-                return c.compact_host(serve_capacity(int(c.mask.sum())))
-            return c.compact_host(capacity)
-
-        def run(name, program, cloud, *static):
-            key = (name, cloud.device, cloud.capacity, cloud.num_cameras,
-                   *static)
-            return self._run(key, lambda _, c: program(c, *static), (cloud,),
-                             capture_span="preprocess_capture")
-
-        self.last_graphs = []
         with profiling.span("preprocess"):
-            cloud = CloudArrays.from_numpy(
-                points, view_points=view_points, cam_source=cam_source,
-                normals=normals, device=self.device,
-                capacity=serve_capacity(len(points)) if serve else capacity)
+            cfg = self.cfg
+            serve = capacity == "serve"
+            points = np.asarray(points, np.float32).reshape(-1, 3)
+            finite = np.isfinite(points).all(axis=1)
+            points = points[finite]
+            if normals is not None:
+                normals = np.asarray(normals,
+                                     np.float32).reshape(-1, 3)[finite]
+            if cam_source is not None:
+                cam_source = np.asarray(cam_source)[..., finite]
+
+            def compact(c):
+                with profiling.span("preprocess_compact"):
+                    if serve:
+                        return c.compact_host(
+                            serve_capacity(int(c.mask.sum())))
+                    return c.compact_host(capacity)
+
+            def run(name, program, cloud, *static):
+                key = (name, cloud.device, cloud.capacity, cloud.num_cameras,
+                       *static)
+                with profiling.span(name):
+                    return self._run(key, lambda _, c: program(c, *static),
+                                     (cloud,),
+                                     capture_span="preprocess_capture")
+
+            self.last_graphs = []
+            with profiling.span("preprocess_upload"):
+                cloud = CloudArrays.from_numpy(
+                    points, view_points=view_points, cam_source=cam_source,
+                    normals=normals, device=self.device,
+                    capacity=serve_capacity(len(points)) if serve
+                    else capacity)
             cloud = compact(run("prep_filter_voxel", _prep_filter_voxel,
                                 cloud, tuple(cfg.workspace), cfg.voxel_size,
                                 cfg.voxelize))
@@ -816,14 +825,16 @@ class GraspDetector:
         (grasp_detector.cpp:313-320) at the cost of those waits.
         ``staged=True`` takes gpd_tpu's staged route (``_detect_staged``).
         Under GPD_TPU_PROFILE the request is traced
-        (``profiling.maybe_trace``)."""
+        (``profiling.maybe_trace``), as one span ``detect`` that holds the
+        route's spans and ``detect_result``, the read of the selection's
+        valid flags."""
         if staged:
             return self._detect_staged(cloud, sample_pos, sample_mask,
                                        generator, verbose, staged_cap)
-        cfg = self.effective_config(cloud)
-        gen = self._generator(generator)
         self.last_graphs = []
-        with profiling.maybe_trace():
+        with profiling.maybe_trace(), profiling.span("detect"):
+            cfg = self.effective_config(cloud)
+            gen = self._generator(generator)
             t0 = time.perf_counter()
             if sync_stages or self._force_eager:
                 out, counts, t_detect, t_select, st = self._detect_eager(
@@ -833,28 +844,31 @@ class GraspDetector:
                     cloud, sample_pos, sample_mask, gen, cfg)
             t_total = time.perf_counter() - t0
 
-        self.last_runtimes = dict(detect=t_detect, select=t_select,
-                                  total=t_total, **st)
-        valid = self._count(cloud, counts, out)
-        if verbose:
-            scores = out.score.cpu().numpy()
-            print("======== Selected grasps ========")
-            for i in np.nonzero(valid)[0][:10]:
-                print(f"Grasp {i}: {scores[i]:.4f}")
-            print(f"Selected the {int(valid.sum())} best grasps.")
-            print("======== RUNTIMES ========")
-            if st:
-                print(f" 1. Candidate generation: {st['candidates']:.4f}s")
-                print(f" 2. Descriptors/images: "
-                      f"{st['descriptors'] + st.get('images', 0.0):.4f}s")
-                print(f" 3. Classification: {st.get('classify', 0.0):.4f}s")
-                print(f" 4. Selection/clustering: {t_select:.4f}s")
-            else:
-                print(f" 1. Candidate generation + descriptors + "
-                      f"classification: {t_detect:.4f}s")
-                print(f" 2. Selection/clustering: {t_select:.4f}s")
-            print("==========")
-            print(f" TOTAL: {t_total:.4f}s")
+            self.last_runtimes = dict(detect=t_detect, select=t_select,
+                                      total=t_total, **st)
+            with profiling.span("detect_result"):
+                valid = self._count(cloud, counts, out)
+            if verbose:
+                scores = out.score.cpu().numpy()
+                print("======== Selected grasps ========")
+                for i in np.nonzero(valid)[0][:10]:
+                    print(f"Grasp {i}: {scores[i]:.4f}")
+                print(f"Selected the {int(valid.sum())} best grasps.")
+                print("======== RUNTIMES ========")
+                if st:
+                    print(f" 1. Candidate generation: "
+                          f"{st['candidates']:.4f}s")
+                    print(f" 2. Descriptors/images: "
+                          f"{st['descriptors'] + st.get('images', 0.0):.4f}s")
+                    print(f" 3. Classification: "
+                          f"{st.get('classify', 0.0):.4f}s")
+                    print(f" 4. Selection/clustering: {t_select:.4f}s")
+                else:
+                    print(f" 1. Candidate generation + descriptors + "
+                          f"classification: {t_detect:.4f}s")
+                    print(f" 2. Selection/clustering: {t_select:.4f}s")
+                print("==========")
+                print(f" TOTAL: {t_total:.4f}s")
         return out
 
     def _detect_eager(self, cloud: CloudArrays, sample_pos, sample_mask,
@@ -950,9 +964,11 @@ class GraspDetector:
             # A hands its cloud on: on a card, B reads the graph's copy.
             return (cloud,) + candidates_program(cloud, spos, smask, g, cfg)
 
-        cloud_a, grasps, spos, smask, counts = self._run_drawing(
-            ("candidates",) + key, part_a, inputs, gen)
-        counts = counts.tolist()
+        with profiling.span("candidates"):
+            cloud_a, grasps, spos, smask, counts = self._run_drawing(
+                ("candidates",) + key, part_a, inputs, gen)
+        with profiling.span("candidates_read"):
+            counts = counts.tolist()
         n_valid, n_active = counts[:2]
         # The live blocks and chunks, as counts at their ends.
         blocks = -(-n_active // _SAMPLE_BLOCK) if S > _SAMPLE_BLOCK else 0
@@ -960,12 +976,14 @@ class GraspDetector:
         key = key + live
         out = (self._images_buffer(cfg, max(1, -(-grasps.capacity // cap))
                                    * cap) if images else None)
-        scored, imgs = self._run_drawing(
-            ("score",) + key + (("images",) if images else ()),
-            lambda g: score_candidates(cloud_a, grasps, spos, smask, net, g,
-                                       cfg, cap, scores_only=not images,
-                                       live=live, images_out=out),
-            (), gen)
+        with profiling.span("score"):
+            scored, imgs = self._run_drawing(
+                ("score",) + key + (("images",) if images else ()),
+                lambda g: score_candidates(cloud_a, grasps, spos, smask, net,
+                                           g, cfg, cap,
+                                           scores_only=not images,
+                                           live=live, images_out=out),
+                (), gen)
         return scored, imgs, counts, key
 
     def _run_drawing(self, key: tuple, program, inputs: tuple,

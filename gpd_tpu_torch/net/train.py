@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from gpd_tpu_torch import resolve_device
+from gpd_tpu_torch import profiling, resolve_device
 from gpd_tpu_torch.detector import CapturedGraph, clone_tree
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.parallel import sharded
@@ -316,7 +316,9 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
     if given, gets every step's (step, loss, accuracy), the last two as
     device scalars (with data parallelism, this rank's slice's). Returns the
     trained parameters as gpd_tpu's dict. Steps and evaluation batches go
-    through one ``StepGraphs``: on a card CUDA graph replays.
+    through one ``StepGraphs``: on a card CUDA graph replays. A block's
+    upload, its steps and each evaluation are the spans ``train_upload``,
+    ``train_steps`` and ``train_eval`` (``profiling``).
 
     ``data_parallel`` with an initialized process group: every rank calls
     ``fit`` on the same data, the device is the rank's (``device`` must name
@@ -356,25 +358,31 @@ def fit(dataset, test_dataset, num_channels: int, epochs: int = 10,
         t0 = time.time()
         block_i = 0
         for images, labels in dataset.blocks():
-            perm = torch.from_numpy(rng.permutation(len(labels))).to(device)
-            images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-            labels = torch.from_numpy(labels.astype(np.int64)).to(device)
-            for i in range(0, len(perm) - batch_size + 1, batch_size):
-                sel = perm[i:i + batch_size][mine]
-                loss, acc = steps.train_step(model, opt, images[sel],
-                                             labels[sel])
-                step += 1
-                if on_step is not None:
-                    on_step(step, loss, acc)
-                if step % 100 == 0:
-                    both = torch.stack([loss, acc])
-                    if mesh is not None:
-                        dist.all_reduce(both, group=mesh.group)
-                        both /= mesh.size
-                    stats.append((step, *both.tolist()))
+            with profiling.span("train_upload"):
+                perm = torch.from_numpy(
+                    rng.permutation(len(labels))).to(device)
+                images = torch.from_numpy(
+                    np.ascontiguousarray(images)).to(device)
+                labels = torch.from_numpy(labels.astype(np.int64)).to(device)
+            with profiling.span("train_steps"):
+                for i in range(0, len(perm) - batch_size + 1, batch_size):
+                    sel = perm[i:i + batch_size][mine]
+                    loss, acc = steps.train_step(model, opt, images[sel],
+                                                 labels[sel])
+                    step += 1
+                    if on_step is not None:
+                        on_step(step, loss, acc)
+                    if step % 100 == 0:
+                        both = torch.stack([loss, acc])
+                        if mesh is not None:
+                            dist.all_reduce(both, group=mesh.group)
+                            both /= mesh.size
+                        stats.append((step, *both.tolist()))
             block_i += 1
             if test_dataset is not None and block_i % eval_every_blocks == 0:
-                tl, ta = evaluate(net, test_dataset, mesh=mesh, steps=steps)
+                with profiling.span("train_eval"):
+                    tl, ta = evaluate(net, test_dataset, mesh=mesh,
+                                      steps=steps)
                 print(f"epoch {epoch} block {block_i}: test loss {tl:.4f} "
                       f"acc {ta:.4f}")
                 save(f"lenet_e{epoch}_b{block_i}.npz")

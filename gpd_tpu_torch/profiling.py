@@ -5,13 +5,43 @@ The reference's observability is per-stage wall-clock prints
 ``GraspDetector.detect`` keeps. On top of that: a ``torch.profiler`` trace
 of host and device activity (CUDA kernels on the card), written as a Chrome
 trace (viewable in Perfetto or chrome://tracing) when the ``GPD_TPU_PROFILE``
-environment variable names a directory, and named spans for the stages.
+environment variable names a directory, and named spans (``span``) at the
+boundaries of a grasp request's and a training epoch's layers. A span costs
+nothing without a running profiler (a shared null context, no call into
+torch) and adds no device sync.
 
 Usage:
     GPD_TPU_PROFILE=/tmp/gpd_trace python -m gpd_tpu_torch.apps.detect_grasps ...
 or programmatically:
     with profiling.maybe_trace("/tmp/gpd_trace") as prof:   # no-op without
         detector.detect(cloud)                              # a directory
+
+The spans, by where they open (one request runs at a time on one thread,
+so a request's spans are those nested in its ``detect``, with the
+``read_file`` and ``preprocess`` just before it):
+
+    read_file           io.pcd.load_cloud_file: the whole parse
+    preprocess          GraspDetector.preprocess_cloud, from its first line
+      preprocess_upload   the raw cloud's upload (CloudArrays.from_numpy)
+      prep_filter_voxel,  each program's graph replay (or eager run)
+      prep_outliers,
+      prep_normals
+      preprocess_compact  each compact_host: its reads back and re-upload
+      preprocess_capture  a program's CUDA graph capture (a new key)
+    detect              GraspDetector.detect (not staged): the request
+      detect_core         A, the read of its counts and B; ends in a wait
+        candidates          A (the hand search), generator hand-offs included
+        candidates_read     the one host read between A and B
+        score               B (descriptors, images, LeNet)
+        detect_capture      a part's CUDA graph capture (a new key)
+      select_and_cluster  C (selection, clustering); ends in a wait
+      detect_result       the read of the selection's valid flags
+    train_upload        net.train.fit: a block's permutation, images, labels
+    train_steps         net.train.fit: the loop over one block's steps
+    train_eval          net.train.fit: each evaluate call (ends in a read)
+    cem_program, cem_capture   the fused CEM request and its capture
+
+``StageTimer.stage`` opens a span of its stage's name too.
 """
 
 from __future__ import annotations
@@ -22,6 +52,7 @@ import time
 from typing import Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def profile_dir() -> Optional[str]:
@@ -38,7 +69,7 @@ def maybe_trace(trace_dir: Optional[str] = None) -> Iterator[
     directory at exit. Otherwise a no-op that yields None. Inside another
     trace it traces nothing of its own (the outer one records the block)."""
     d = trace_dir or profile_dir()
-    if not d or torch.autograd.profiler._is_profiler_enabled:
+    if not d or _autograd_profiler._is_profiler_enabled:
         yield None
         return
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -52,10 +83,19 @@ def maybe_trace(trace_dir: Optional[str] = None) -> Iterator[
     print(f"# torch profiler trace written to {path}")
 
 
+# What ``span`` returns while no profiler runs: one shared, reusable null
+# context.
+_OFF = contextlib.nullcontext()
+
+
 def span(name: str):
-    """Named sub-span (``torch.profiler.record_function``): shows up in the
-    trace as a host range around the work queued inside it, and costs next
-    to nothing when no trace is on."""
+    """Named span: while a profiler runs, ``torch.profiler.record_function``,
+    a host range in the trace around the work queued inside it; otherwise
+    the shared null context, with no call into torch. So a span opened
+    before a profiler starts records nothing: open spans inside
+    ``maybe_trace``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
 
 
