@@ -21,7 +21,12 @@ Phases; any failure exits non-zero and prints no result line:
      133, 256; K 200, 2047, 3072; with and without shadows, Cp 4 and 2,
      Cp 6 and 3); then raster_blocks at the staged route's chunk of 4096
      hands. Every check runs the kernel twice: counts exactly equal,
-     values within atol 1e-3 + rtol 1e-5;
+     values within atol 1e-3 + rtol 1e-5. Then hand_search against its
+     plain version (_eval_orientations) on the benchmark's first table
+     cloud (capacity 14336) and first PCD cloud (8192), 1000 samples, 8
+     orientations, identity rows: flags and mid equal on >= 99.9% of
+     slots, values within 1e-5 where valid agrees, each timed with its
+     bound (``python3 chip_smoke.py hand_search`` runs this check alone);
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
      synthetic two-camera table scenes, one warm-up and 3 scenes.
@@ -272,7 +277,14 @@ import time
 import numpy as np
 
 REQUESTS = 3
-KERNELS = ("raster_blocks", "raster_sums", "raster_sums2")
+KERNELS = ("raster_blocks", "raster_sums", "raster_sums2", "hand_search")
+# Kernel families of a profiler trace (raster_sums2's kernels are
+# raster_sums').
+FAMILIES = ("raster_blocks", "raster_sums", "hand_search")
+# The hand search's check: (kind, traffic, configuration, capacity of the
+# traffic's first cloud) of the benchmark's two serving cells.
+HAND_SEARCH_CLOUDS = (("table", "table_stream", "gpd15", 14336),
+                      ("pcd", "pcd_stream", "gpd3", 8192))
 # Ragged shapes for the persistent kernels: one hand, a hand count that
 # leaves blocks unequal runs of items, K short, not a multiple of 4, and
 # above 2048.
@@ -389,6 +401,15 @@ def bound(nbytes, n_ops):
                                    else "operations")
 
 
+def hand_search_ops(P):
+    """The hand search's f32 operations per (member, orientation) at P
+    finger placements: the hand-frame coordinates (3 products, 6 fused
+    multiply-adds, counted twice), the height crop and min x (3), each of
+    the 2P finger slabs' two tests and min (6P), then the closing-region
+    test with its coordinates and y extremes (21)."""
+    return 15 + 3 + 6 * P + 21
+
+
 def check_raster(torch, img):
     """raster_blocks against raster_blocks_ref, with shadows (the 15-channel
     paths) and without (the 12-channel paths) on the same operands, each
@@ -470,6 +491,120 @@ def check_raster_staged_chunk(torch, img):
     del args, ref
     torch.cuda.empty_cache()
     return out
+
+
+def benchmark_cloud(torch, GraspDetector, cell, config):
+    """The first cloud of the benchmark's traffic ``cell``, preprocessed on
+    the card as the benchmark's serving cell does, on a detector of its
+    configuration ``config``. Returns (cloud, effective DetectorConfig)."""
+    from h100_bench.entries.serve import program_config
+    from h100_bench.inputs import generate
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "h100_bench")
+    with open(os.path.join(root, "traffic", cell + ".json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(root, "configs", config + ".json")) as f:
+        spec = json.load(f)
+    mix["scene_seeds"] = mix["scene_seeds"][:1]
+    det = GraspDetector(program_config(spec["detector"], spec["weights"]),
+                        device="cuda")
+    if mix["input"] == "memory":
+        (it,) = generate.table_scenes(mix)
+        cloud = det.preprocess_cloud(it["points"],
+                                     view_points=it["view_points"],
+                                     cam_source=it["cam_source"])
+    else:
+        (pts,) = generate.single_camera_scenes(mix)
+        cam = np.asarray(det.cfg.camera_position, np.float32).reshape(1, 3)
+        cloud = det.preprocess_cloud(pts, view_points=cam, capacity="serve")
+    return cloud, det.effective_config(cloud)
+
+
+def check_hand_search(torch, cand, detector, GraspDetector):
+    """hand_search against its plain version on the benchmark's first
+    table and PCD clouds at 1000 samples and 8 orientations, identity rows
+    as the main path runs them: member counts exact, flags and mid equal
+    on >= 99.9% of slots, the values within 1e-5 where valid agrees (R
+    everywhere), twice; then the kernel, the plain version and the bound
+    timed. Returns the kernels-line entry: the table cloud's shape, the PCD
+    cloud's under "pcd"."""
+    from gpd_tpu_torch import constant
+    from gpd_tpu_torch.ops.frames import estimate_frames
+    timings = {}
+    for kind, cell, config, capacity in HAND_SEARCH_CLOUDS:
+        cloud, cfg = benchmark_cloud(torch, GraspDetector, cell, config)
+        if cloud.capacity != capacity:
+            fail(f"hand_search: the {kind} cloud has capacity "
+                 f"{cloud.capacity}, not {capacity}")
+        spos, smask = detector.sample_points(cloud, seeded(torch, 0), cfg)
+        frames, fvalid = estimate_frames(
+            spos, smask, cloud.points, cloud.mask, cloud.normals,
+            radius=cfg.nn_radius_frames)
+        member, idx = cand._search_neighbors(
+            spos, fvalid, cloud.points, cloud.mask, cfg.hand_search_radius,
+            cfg.search_neighbors_cap)
+        if idx is not None:
+            fail(f"hand_search: the {kind} cloud took the capped route")
+        rfix = constant(cand.rotation_grid(cfg.angles, cfg.hand_axes),
+                        "cuda")
+        params = cand.SearchParams.from_config(cfg)
+        args = (cloud.points, cloud.normals, spos, frames, rfix, member,
+                None, params)
+
+        def plain(points, normals, spos, frames, rfix, member, idx, params):
+            return cand._eval_orientations(
+                points[None] - spos[:, None],
+                normals[None].expand(spos.shape[0], -1, 3), member, frames,
+                rfix, params)
+        ref = plain(*args)
+        n = ref["valid"].numel()
+        err = 0.0
+        for _ in range(2):
+            out, members = cand.hand_search(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(members, member.sum(1).int()):
+                fail(f"hand_search ({kind}): member counts differ")
+            off = {k: int((out[k] != ref[k]).sum())
+                   for k in ("valid", "full", "half", "mid")}
+            if max(off.values()) > n // 1000:
+                fail(f"hand_search ({kind}): {off} of {n} slots differ")
+            agree = out["valid"] == ref["valid"]
+            gaps = [float((out["R"] - ref["R"]).abs().max())] + [
+                float((out[k][agree] - ref[k][agree]).abs().max())
+                for k in ("top", "bottom", "center", "width", "pos")]
+            err = max(err, *gaps)
+            if err > 1e-5:
+                fail(f"hand_search ({kind}): values {err:.3e} apart")
+        ms = cuda_ms(torch, lambda *a: cand.hand_search(*a), args)
+        plain_ms = cuda_ms(torch, plain, args, iters=5, warmup=1)
+        M, S, N = rfix.shape[0], spos.shape[0], cloud.capacity
+        nbytes = (member.numel() + N * 24 + S * 48 + M * 36
+                  + M * S * (13 * 4 + 4 * 4 + 8 + 3))
+        n_ops = int(members.sum()) * M * hand_search_ops(
+            params.num_placements)
+        bound_ms, bound_by = bound(nbytes, n_ops)
+        print(f"hand_search ({kind}, capacity {N}, S={S}, M={M}): members "
+              f"mean {float(members.float().mean()):.1f}, max "
+              f"{int(members.max())}; {int(ref['valid'].sum())} valid, "
+              f"{int(ref['full'].sum())} full of {n} slots; mismatches "
+              f"{off}; max abs err {err:.3e}; {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} G ops); ms / "
+              f"bound_ms = {ms / bound_ms:.2f}")
+        timings[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bound_ratio=ms / bound_ms,
+                             max_abs_err=err, mismatches=off,
+                             members_max=int(members.max()))
+        del ref, out, args, member, cloud
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(name="hand_search", route="cuda",
+                source="gpd_tpu_torch/csrc/hand_search.cu",
+                replaces="none: gpd_tpu's _search_kernel "
+                         "(gpd_tpu/ops/candidates.py:282) is XLA",
+                **timings["table"], pcd=timings["pcd"],
+                note="no one PyTorch call computes the search: no library "
+                     "yardstick")
 
 
 def check_raster_ragged(torch, img):
@@ -801,7 +936,7 @@ def graph_turns(torch, img, profiling, det, request, label, family, d):
     events = traced(profiling, request, d)
     ran = span_launches(events, "detect_core")
     graph = read_trace(events, spans, f"{label}, graph replay", 0)
-    want = {"raster_blocks": 0, "raster_sums": 0}
+    want = dict.fromkeys(FAMILIES, 0)
     for k in det.last_graphs:
         for family_k, n in captured_launches(det.graphs[k]).items():
             want[family_k] += n
@@ -871,7 +1006,7 @@ def main_path(torch, img, profiling, syn, det, cpu_det):
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
 
     reset_counts(img)
-    ran = {"raster_blocks": 0, "raster_sums": 0}
+    ran = dict.fromkeys(FAMILIES, 0)
     traces = tempfile.TemporaryDirectory()
     for r in range(REQUESTS):
         p, cs, vp = scene(syn, r)
@@ -901,7 +1036,8 @@ def main_path(torch, img, profiling, syn, det, cpu_det):
           f"(warm-ups and captures, and {5 * REQUESTS} eager requests, "
           f"{REQUESTS} of them traced); "
           f"{len(det.graphs)} graphs captured; traced replays ran "
-          f"{ran['raster_blocks'] / REQUESTS:.2f} raster_blocks per request")
+          f"{ran['raster_blocks'] / REQUESTS:.2f} raster_blocks and "
+          f"{ran['hand_search'] / REQUESTS:.2f} hand_search per request")
     return launches, {**ran, "raster_sums2": 0}
 
 
@@ -941,7 +1077,7 @@ def entry_point_3ch(torch, img, profiling, pcd, det, cpu_det, paths, tmp):
     print(f"3-channel warm-up request (detect_file): "
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
     reset_counts(img)
-    ran = {"raster_blocks": 0, "raster_sums": 0}
+    ran = dict.fromkeys(FAMILIES, 0)
     cam = np.asarray(det.cfg.camera_position, np.float32).reshape(1, 3)
     for r, path in enumerate(paths[1:]):
         pts = pcd.load_cloud_file(path)
@@ -970,9 +1106,9 @@ def entry_point_3ch(torch, img, profiling, pcd, det, cpu_det, paths, tmp):
           f"(warm-ups and captures, and {5 * REQUESTS} eager requests, "
           f"{REQUESTS} of them traced); "
           f"{len(det.graphs)} graphs captured; traced replays ran "
-          f"{ran['raster_sums'] / REQUESTS:.2f} raster_sums per request")
-    return launches, {"raster_blocks": 0, "raster_sums": ran["raster_sums"],
-                      "raster_sums2": 0}
+          f"{ran['raster_sums'] / REQUESTS:.2f} raster_sums and "
+          f"{ran['hand_search'] / REQUESTS:.2f} hand_search per request")
+    return launches, {**ran, "raster_blocks": 0, "raster_sums2": 0}
 
 
 def cli_3ch(detect_grasps, pcd, path, cam, tmp):
@@ -1029,7 +1165,7 @@ def span_launches(events, span):
     launch = {e["args"]["correlation"]: e["ts"] for e in events
               if e.get("cat") == "cuda_runtime"
               and "correlation" in e.get("args", {})}
-    out = {"raster_blocks": 0, "raster_sums": 0}
+    out = dict.fromkeys(FAMILIES, 0)
     for e in events:
         if e.get("cat") != "kernel" or e.get("ph") != "X" or not (
                 t0 <= launch.get(e.get("args", {}).get("correlation"), -1)
@@ -1046,7 +1182,8 @@ def captured_launches(entry):
     its capture recorded them."""
     n = dict(zip(KERNELS, entry.launches))
     return {"raster_blocks": n["raster_blocks"],
-            "raster_sums": n["raster_sums"] + n["raster_sums2"]}
+            "raster_sums": n["raster_sums"] + n["raster_sums2"],
+            "hand_search": n["hand_search"]}
 
 
 def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
@@ -1544,7 +1681,7 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
                        "15-channel detect request, graph route (replays)",
                        10)
     ran = span_launches(events, "detect_core")
-    want = {"raster_blocks": 0, "raster_sums": 0}
+    want = dict.fromkeys(FAMILIES, 0)
     for k in det.last_graphs:
         for family, n in captured_launches(det.graphs[k]).items():
             want[family] += n
@@ -2225,7 +2362,7 @@ def traced_span(torch, profiling, fn, d, label, det, eager=False):
         events = traced(profiling, run, d)
     finally:
         det._force_eager = False
-    want = {"raster_blocks": 0, "raster_sums": 0}
+    want = dict.fromkeys(FAMILIES, 0)
     for k in det.last_graphs:
         for family, n in captured_launches(det.graphs[k]).items():
             want[family] += n
@@ -2900,13 +3037,22 @@ def score_check(torch, lenet, cpu_net, card_net, images, k_cap):
         fail(f"the card's top-{k} shares {overlap:.1%} with the CPU's")
 
 
+def wrapper(img, name):
+    """The kernel wrapper ``name``: the raster kernels' in ``img``, the
+    hand search's in ops/candidates.py."""
+    if name == "hand_search":
+        from gpd_tpu_torch.ops import candidates
+        return candidates.hand_search
+    return getattr(img, name)
+
+
 def reset_counts(img):
     for name in KERNELS:
-        getattr(img, name).launches = 0
+        wrapper(img, name).launches = 0
 
 
 def counts(img):
-    return {name: getattr(img, name).launches for name in KERNELS}
+    return {name: wrapper(img, name).launches for name in KERNELS}
 
 
 def stage_breakdown(torch, det, prepare, kernel, label):
@@ -3657,6 +3803,25 @@ def widths_only(torch, card):
         "launches": {**by12, **by1}}))
 
 
+def hand_search_only(torch, card):
+    """``python3 chip_smoke.py hand_search``: the hand search's check and
+    timing alone (phase 3's last check); prints its kernels-line entry
+    last."""
+    from gpd_tpu_torch import detector
+    from gpd_tpu_torch.detector import GraspDetector
+    from gpd_tpu_torch.ops import _build
+    from gpd_tpu_torch.ops import candidates as cand
+
+    for name, log in _build.build(["hand_search"]).items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line or "stack" in line:
+                print(f"  {name}: {line.strip()}")
+    entry = check_hand_search(torch, cand, detector, GraspDetector)
+    print(card)
+    print(json.dumps({"kernels": [entry]}))
+
+
 def main():
     # One card: the first, unless the caller chose one.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -3675,6 +3840,8 @@ def main():
         return classifier_only(torch, card, [int(a) for a in sys.argv[2:]])
     if sys.argv[1:2] == ["widths"]:
         return widths_only(torch, card)
+    if sys.argv[1:2] == ["hand_search"]:
+        return hand_search_only(torch, card)
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -3696,7 +3863,7 @@ def main():
 
     # The C ABI compiles against this Python's headers; without them the C
     # ABI phase prints one line instead of running.
-    libs = ["raster_blocks", "raster_sums", "pcd_ascii"]
+    libs = ["raster_blocks", "raster_sums", "hand_search", "pcd_ascii"]
     why_no_c_abi = None
     if _build.python_include() is None:
         why_no_c_abi = (f"this Python has no Python.h in "
@@ -3716,6 +3883,8 @@ def main():
     entries = {"raster_blocks": shadow, **check_sums(torch, img)}
     entries["raster_blocks"]["staged_chunk"] = check_raster_staged_chunk(
         torch, img)
+    entries["hand_search"] = check_hand_search(torch, cand, detector,
+                                               GraspDetector)
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
@@ -3826,9 +3995,12 @@ def main():
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
+    entries["hand_search"]["launches"] = launches15["hand_search"]
     for name, e in entries.items():
+        # A path that counted only the raster kernels is left out.
         e["launches_by_path"] = {path: launches[name]
-                                 for path, launches in by_path.items()}
+                                 for path, launches in by_path.items()
+                                 if name in launches}
     free["launches"] = next(iter(by12.values()))["raster_blocks"]
     free["launches_by_path"] = {path: launches["raster_blocks"]
                                 for path, launches in by12.items()}
@@ -3871,7 +4043,7 @@ def main():
     keys = ("name", "shadows", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_ratio", "launches_by_path", "staged_chunk",
-            "note")
+            "pcd", "mismatches", "members_max", "note")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in [*entries.values(), free]]}))
     print(card)

@@ -131,23 +131,27 @@ def _prep_normals(cloud: CloudArrays, radius: float, do_estimate: bool,
 
 def candidates_stage(cloud: CloudArrays, sample_pos: torch.Tensor,
                      sample_mask: torch.Tensor, cfg: DetectorConfig,
-                     host_reads: bool = True) -> Grasps:
+                     host_reads: bool = True,
+                     stats: Optional[dict] = None) -> Grasps:
     """Steps 1-2 of detectGrasps: frames -> hand search -> filters
     (grasp_detector.cpp:192-258). ``host_reads=False``: no read of a count
-    back to the host (for CUDA graph capture)."""
+    back to the host (for CUDA graph capture). ``stats`` as in
+    ``search_hands_with_frames``."""
     frames, fvalid = estimate_frames(
         sample_pos, sample_mask, cloud.points, cloud.mask, cloud.normals,
         radius=cfg.nn_radius_frames)
-    return hands_at_frames(cloud, sample_pos, frames, fvalid, cfg, host_reads)
+    return hands_at_frames(cloud, sample_pos, frames, fvalid, cfg, host_reads,
+                           stats)
 
 
 def hands_at_frames(cloud: CloudArrays, sample_pos: torch.Tensor,
                     frames: torch.Tensor, fvalid: torch.Tensor,
-                    cfg: DetectorConfig, host_reads: bool = True) -> Grasps:
+                    cfg: DetectorConfig, host_reads: bool = True,
+                    stats: Optional[dict] = None) -> Grasps:
     """Step 2 of detectGrasps at given local frames (S, 3, 3) and their
     valid flags: the hand search, then the workspace/direction filters."""
     grasps = cand.search_hands_with_frames(cloud, sample_pos, frames, fvalid,
-                                           cfg, host_reads)
+                                           cfg, host_reads, stats)
     hg = cfg.hand_geometry
     grasps = sel.filter_grasps_workspace(
         grasps, cfg.workspace_grasps, cfg.min_aperture, cfg.max_aperture,
@@ -449,14 +453,16 @@ def detect_core(cloud: CloudArrays, sample_pos: torch.Tensor,
                 sample_mask: torch.Tensor, net: lenet.LeNet,
                 generator: torch.Generator, cfg: DetectorConfig,
                 image_cap: int, scores_only: bool = False,
-                timer: Optional[profiling.StageTimer] = None
+                timer: Optional[profiling.StageTimer] = None,
+                stats: Optional[dict] = None
                 ) -> Tuple[Grasps, Optional[torch.Tensor]]:
     """frames -> candidates -> filters -> images -> CNN scores
     (grasp_detector.cpp:192-273, steps 1-4). Returns (scored Grasps in
     valid-first order, their uint8 images or, with ``scores_only=True``,
-    None)."""
+    None). ``stats`` as in ``search_hands_with_frames``."""
     timer = timer or profiling.StageTimer(on=False)
-    grasps = candidates_stage(cloud, sample_pos, sample_mask, cfg)
+    grasps = candidates_stage(cloud, sample_pos, sample_mask, cfg,
+                              stats=stats)
     timer.mark("candidates")
     return score_candidates(cloud, grasps, sample_pos, sample_mask, net,
                             generator, cfg, image_cap, scores_only, timer)
@@ -481,16 +487,19 @@ def candidates_program(cloud: CloudArrays,
                                   torch.Tensor]:
     """The first of ``detect``'s three parts, which reads nothing back to
     the host: the samples (``sample_points`` when ``sample_pos`` is None),
-    ``candidates_stage`` without host reads, and in one (4,) int64 device
+    ``candidates_stage`` without host reads, and in one (5,) int64 device
     tensor the counts that the rest of the request needs: valid hands,
-    active samples (``live_counts``), valid samples, cloud points. Returns
-    (grasps, sample_pos, sample_mask, counts)."""
+    active samples (``live_counts``), valid samples, cloud points, and the
+    largest neighbourhood the hand search swept (``hand_neighbors_max``).
+    Returns (grasps, sample_pos, sample_mask, counts)."""
     if sample_pos is None:
         sample_pos, sample_mask = sample_points(cloud, generator, cfg)
+    stats = {}
     grasps = candidates_stage(cloud, sample_pos, sample_mask, cfg,
-                              host_reads=False)
+                              host_reads=False, stats=stats)
     counts = torch.cat([live_counts(grasps, sample_mask),
-                        torch.stack([sample_mask.sum(), cloud.mask.sum()])])
+                        torch.stack([sample_mask.sum(), cloud.mask.sum(),
+                                     stats["hand_neighbors_max"]])])
     return grasps, sample_pos, sample_mask, counts
 
 
@@ -513,7 +522,8 @@ def select_and_cluster(grasps: Grasps, cfg: DetectorConfig) -> Grasps:
 
 
 # The kernel wrappers whose calls a capture records into its graph.
-_KERNELS = (img.raster_blocks, img.raster_sums, img.raster_sums2)
+_KERNELS = (img.raster_blocks, img.raster_sums, img.raster_sums2,
+            cand.hand_search)
 
 
 def _tensors(tree) -> list:
@@ -884,11 +894,13 @@ class GraspDetector:
             sample_pos, sample_mask = self.sample_cloud(cloud, gen)
             timer.mark("sample")
         cap = self.image_cap(sample_pos.shape[0])
+        stats = {}
 
         t_c0 = time.perf_counter()
         with profiling.span("detect_core"):
             g, _ = detect_core(cloud, sample_pos, sample_mask, self.net,
-                               gen, cfg, cap, scores_only=True, timer=timer)
+                               gen, cfg, cap, scores_only=True, timer=timer,
+                               stats=stats)
             n_candidates = int(g.valid.sum())  # also waits for the device
         t_detect = time.perf_counter() - t_c0
 
@@ -897,7 +909,8 @@ class GraspDetector:
             out = select_and_cluster(g, cfg)
             _sync(self.device)
         counts = dict(points=int(cloud.mask.sum()),
-                      samples=int(sample_mask.sum()), candidates=n_candidates)
+                      samples=int(sample_mask.sum()), candidates=n_candidates,
+                      hand_neighbors_max=int(stats["hand_neighbors_max"]))
         return (out, counts, t_detect, time.perf_counter() - t_s0,
                 timer.stages)
 
@@ -921,8 +934,9 @@ class GraspDetector:
             out = clone_tree(self._run(
                 ("select",) + key, lambda g: select_and_cluster(scored, cfg)))
             _sync(self.device)
-        n_valid, _, n_samples, n_points = counts
-        counts = dict(points=n_points, samples=n_samples, candidates=n_valid)
+        n_valid, _, n_samples, n_points, n_hood = counts
+        counts = dict(points=n_points, samples=n_samples, candidates=n_valid,
+                      hand_neighbors_max=n_hood)
         return out, counts, t_detect, time.perf_counter() - t_s0, {}
 
     def _scored_programs(self, cloud: CloudArrays, sample_pos, sample_mask,
@@ -950,7 +964,8 @@ class GraspDetector:
         None), which the next replay rewrites (the images, in the
         detector's ``_images_buffer``, the next B with images of any key);
         A's counts as a list (valid
-        hands, active samples, valid samples, cloud points); and B's key
+        hands, active samples, valid samples, cloud points, largest hand
+        neighbourhood); and B's key
         without its name."""
         given = sample_pos is not None
         S = sample_pos.shape[0] if given else cfg.num_samples
@@ -1081,7 +1096,9 @@ class GraspDetector:
                                 capacity=cloud.capacity,
                                 samples=counts["samples"],
                                 candidates=counts["candidates"],
-                                selected=int(valid.sum()))
+                                selected=int(valid.sum()),
+                                hand_neighbors_max=counts[
+                                    "hand_neighbors_max"])
         return valid
 
     def _detect_staged(self, cloud: CloudArrays, sample_pos, sample_mask,
@@ -1105,10 +1122,11 @@ class GraspDetector:
                      * len(cfg.hand_axes))
             cap = staged_cap or min(_next_size(total, 256), 4096)
             timer = profiling.StageTimer(self.device)
+            stats = {}
             with profiling.span("detect_core"):
                 g, _ = detect_core(cloud, sample_pos, sample_mask, self.net,
                                    gen, cfg, cap, scores_only=True,
-                                   timer=timer)
+                                   timer=timer, stats=stats)
                 n_valid = int(g.valid.sum())
             with profiling.span("select_and_cluster"):
                 out = select_and_cluster(g, cfg)
@@ -1122,7 +1140,8 @@ class GraspDetector:
             classify=st.get("classify", 0.0), total=t_total)
         valid = self._count(cloud, dict(
             points=int(cloud.mask.sum()), samples=int(sample_mask.sum()),
-            candidates=n_valid), out)
+            candidates=n_valid,
+            hand_neighbors_max=int(stats["hand_neighbors_max"])), out)
         if verbose:
             rt = self.last_runtimes
             print(f"Selected the {int(valid.sum())} best grasps.")

@@ -11,15 +11,20 @@ work over the (orientation x sample x neighborhood) grid:
     accumulation loop, ``HandGeometry.deepen_depths``),
   - the antipodal force-closure test is elementwise math + reductions.
 
-Samples run in blocks whose (M, B, K) working tensors stay under
-``_BLOCK_ELEMS``; blocks that hold no sample with a valid frame are skipped.
+On the card the orientation pass is one hand-written CUDA kernel,
+``hand_search`` (csrc/hand_search.cu), over every sample in one launch; its
+plain version is ``_eval_orientations``, which the CPU runs with samples in
+blocks whose (M, B, K) working tensors stay under ``_BLOCK_ELEMS``, skipping
+blocks that hold no sample with a valid frame.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ import torch
 from gpd_tpu_torch import constant
 from gpd_tpu_torch.config import DetectorConfig, HandGeometry
 from gpd_tpu_torch.core.types import Grasps
+from gpd_tpu_torch.ops import _build
 from gpd_tpu_torch.ops.frames import estimate_frames
 from gpd_tpu_torch.ops.neighbors import radius_mask, radius_neighbors
 
@@ -36,6 +42,11 @@ _POS = 1e9
 # Per-sample-block working-set budget for the hand search, in f32 elements
 # of one (M, B, K) tensor (~270 MB).
 _BLOCK_ELEMS = 1 << 26
+
+# Members of one sample's neighbourhood that a block of the hand-search
+# kernel holds in shared memory (16 B each: 96 KB, two blocks an SM); a
+# larger neighbourhood is swept in tiles of this many.
+HAND_TILE = 6144
 
 
 def _ceil128(n: int) -> int:
@@ -239,11 +250,162 @@ def _eval_orientations(rel, nrm, nvalid, frames, rfix, p: SearchParams):
                 full=full & valid, half=half & valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_geometry(p: SearchParams) -> np.ndarray:
+    """The hand-search kernel's host array of parameters, each rounded to
+    float32 as PyTorch rounds a Python scalar against a float32 tensor:
+    hand height, init_bite, init_bite - depth, depth, finger width,
+    friction cosine, the antipodal margin, the 2P slab starts (the finger
+    spacing), the 2P slab ends (start + width in float32) and the deepening
+    depths (none when deepen_hand is off)."""
+    lo = np.asarray(p.spacing, np.float32)
+    hi = lo + np.float32(p.finger_width)
+    depths = p.depths if p.deepen_hand else ()
+    head = [p.hand_height, p.init_bite, p.init_bite - p.hand_depth,
+            p.hand_depth, p.finger_width, p.friction_cos, 0.003]
+    return np.concatenate([np.asarray(head, np.float32), lo, hi,
+                           np.asarray(depths, np.float32)])
+
+
+_HAND_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+
+
+def _check_search_operands(points, normals, sample_pos, frames, rfix, member,
+                           idx, params: SearchParams):
+    N, S, M = points.shape[0], sample_pos.shape[0], rfix.shape[0]
+    want = {"points": (points, (N, 3)), "normals": (normals, (N, 3)),
+            "sample_pos": (sample_pos, (S, 3)), "frames": (frames, (S, 3, 3)),
+            "rfix": (rfix, (M, 3, 3))}
+    for name, (t, shape) in want.items():
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if member.dtype != torch.bool or member.dim() != 2 or \
+            member.shape[0] != S:
+        raise ValueError(f"member must be bool ({S}, L), got {member.dtype} "
+                         f"{tuple(member.shape)}")
+    tensors = [points, normals, sample_pos, frames, rfix, member]
+    if idx is None:
+        if member.shape[1] != N:
+            raise ValueError(f"identity rows cover the cloud: member must be "
+                             f"({S}, {N}), got {tuple(member.shape)}")
+    else:
+        if idx.dtype != torch.int64 or idx.shape != member.shape:
+            raise ValueError(f"idx must be int64 {tuple(member.shape)}, got "
+                             f"{idx.dtype} {tuple(idx.shape)}")
+        tensors.append(idx)
+    if any(t.device != points.device for t in tensors):
+        raise ValueError("hand search operands must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("hand search operands must be contiguous")
+    if not 1 <= params.num_placements <= 32:
+        raise ValueError(f"the hand search kernel takes 1-32 finger "
+                         f"placements, not {params.num_placements}")
+    if params.deepen_hand and len(params.depths) > 64:
+        raise ValueError(f"the hand search kernel takes at most 64 "
+                         f"deepening depths, not {len(params.depths)}")
+
+
+def hand_search(points, normals, sample_pos, frames, rfix, member, idx,
+                params: SearchParams):
+    """Every (axis, orientation) hand of S samples over their radius
+    neighbourhoods: ``_eval_orientations``' outputs, (M, S, ...), and each
+    sample's member count (S,) int32.
+
+    points, normals: (N, 3) float32; sample_pos: (S, 3); frames: (S, 3, 3);
+    rfix: (M, 3, 3); member: (S, L) bool, the in-radius mask of each
+    sample's neighbour row (``radius_mask`` or ``radius_neighbors``'
+    valid); idx: (S, L) int64 point indices of those rows, or None for
+    identity rows (L = N, entry j is point j).
+
+    CUDA tensors launch the kernel in csrc/hand_search.cu (built at first
+    use; its header notes the bound on the H100 and the design), one launch
+    for every sample; CPU tensors take ``_eval_orientations``, the plain
+    version. ``hand_search.launches`` counts kernel launches.
+    """
+    _check_search_operands(points, normals, sample_pos, frames, rfix, member,
+                           idx, params)
+    if points.device.type == "cpu":
+        if idx is None:
+            rel = points[None, :, :] - sample_pos[:, None, :]
+            nrm = normals[None, :, :].expand(rel.shape)
+        else:
+            rel = points[idx] - sample_pos[:, None, :]
+            nrm = normals[idx]
+        return (_eval_orientations(rel, nrm, member, frames, rfix, params),
+                member.sum(dim=-1, dtype=torch.int32))
+    if points.device.type != "cuda":
+        raise ValueError(f"hand_search runs on cuda or cpu, not "
+                         f"{points.device}")
+    lib = _build.load("hand_search")
+    fn = lib.hand_search_launch
+    fn.argtypes = _HAND_ARGTYPES
+    fn.restype = ctypes.c_int
+    S, M, L = sample_pos.shape[0], rfix.shape[0], member.shape[1]
+    dev = points.device
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty((M, S) + shape, dtype=dtype, device=dev)
+    out = dict(R=new(3, 3), pos=new(3), top=new(), bottom=new(),
+               center=new(), width=new(), mid=new(dtype=torch.int64),
+               valid=new(dtype=torch.bool), full=new(dtype=torch.bool),
+               half=new(dtype=torch.bool))
+    members = torch.empty(S, dtype=torch.int32, device=dev)
+    geom = _kernel_geometry(params)
+    depths = len(params.depths) if params.deepen_hand else 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(points.data_ptr(), normals.data_ptr(), sample_pos.data_ptr(),
+                 frames.data_ptr(), rfix.data_ptr(), member.data_ptr(),
+                 None if idx is None else idx.data_ptr(),
+                 *(out[k].data_ptr() for k in ("R", "pos", "top", "bottom",
+                                                "center", "width", "mid",
+                                                "valid", "full", "half")),
+                 members.data_ptr(), S, M, L, max(1, min(L, HAND_TILE)),
+                 geom.ctypes.data, params.num_placements, depths,
+                 params.min_viable, stream)
+    if err != 0:
+        raise RuntimeError(f"hand_search launch failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    hand_search.launches += 1
+    return out, members
+
+
+hand_search.launches = 0
+
+
+def _search_neighbors(sample_pos, frame_valid, points, pmask, radius: float,
+                      k: int):
+    """(member, idx) rows of the hand search: with a cap covering the cloud
+    the in-radius mask of the whole cloud (identity rows, idx None), else
+    the exact nearest k with their in-radius flags."""
+    if k >= points.shape[0]:
+        member, _ = radius_mask(sample_pos, frame_valid, points, pmask, radius)
+        return member, None
+    idx, member = radius_neighbors(sample_pos, frame_valid, points, pmask,
+                                   radius=radius, k=k, exact=True)
+    return member.contiguous(), idx.contiguous()
+
+
 def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
                    radius: float, rfix, params: SearchParams, k: int,
                    host_reads: bool = True):
+    """The hand search's outputs, (M, S, ...) as ``_eval_orientations``',
+    and ``members``, each sample's neighbourhood size (S,) int32. On the
+    card one ``hand_search`` launch over every sample (no host read); on
+    the CPU in sample blocks."""
     S = sample_pos.shape[0]
     M = rfix.shape[0]
+
+    def eval_block(spos_b, fval_b, frames_b):
+        member, idx = _search_neighbors(spos_b, fval_b, points, pmask,
+                                        radius, k)
+        out, members = hand_search(points, normals, spos_b, frames_b, rfix,
+                                   member, idx, params)
+        return dict(out, members=members)
+
     # Sample blocks keep each (M, B, K) working tensor under _BLOCK_ELEMS;
     # for very large K the block shrinks toward 8 rows, so the uncapped
     # identity search runs at any cloud size.
@@ -252,21 +414,7 @@ def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
         blk = max(128, min(_ceil128(S), budget & ~127))
     else:
         blk = max(8, budget & ~7)
-
-    def eval_block(spos_b, fval_b, frames_b):
-        if k >= points.shape[0]:
-            # Whole-cloud neighborhoods: broadcast instead of gathering.
-            nvalid, _ = radius_mask(spos_b, fval_b, points, pmask, radius)
-            rel = points[None, :, :] - spos_b[:, None, :]
-            nrm = normals[None, :, :].expand(rel.shape)
-        else:
-            idx, nvalid = radius_neighbors(spos_b, fval_b, points, pmask,
-                                           radius=radius, k=k, exact=True)
-            rel = points[idx] - spos_b[:, None, :]
-            nrm = normals[idx]
-        return _eval_orientations(rel, nrm, nvalid, frames_b, rfix, params)
-
-    if S <= blk:
+    if S <= blk or points.device.type != "cpu":
         return eval_block(sample_pos, frame_valid, frames)
 
     # Valid-first sample order; blocks past the valid count hold no valid
@@ -280,9 +428,10 @@ def _search_kernel(points, normals, pmask, sample_pos, frames, frame_valid,
              for sl in (order[b:b + blk] for b in range(0, n_valid, blk))]
     out = {}
     for key in parts[0]:
-        live = torch.cat([pt[key] for pt in parts], dim=1)
-        full = live.new_zeros((M, S) + live.shape[2:])
-        full[:, order[:live.shape[1]]] = live
+        dim = 0 if key == "members" else 1
+        live = torch.cat([pt[key] for pt in parts], dim=dim)
+        full = live.new_zeros(live.shape[:dim] + (S,) + live.shape[dim + 1:])
+        full.index_copy_(dim, order[:live.shape[dim]], live)
         out[key] = full
     return out
 
@@ -302,11 +451,14 @@ def search_hands(cloud, sample_pos: torch.Tensor, sample_mask: torch.Tensor,
 
 def search_hands_with_frames(cloud, sample_pos, frames, fvalid,
                              cfg: DetectorConfig,
-                             host_reads: bool = True) -> Grasps:
+                             host_reads: bool = True,
+                             stats: Optional[dict] = None) -> Grasps:
     """Hand search at given local frames. Returns a flat Grasps batch of
     S * num_axes * num_orientations, sample-major then (axis, orientation):
     the reference's HandSet order (hand_set.cpp:31-47). ``host_reads=False``
-    runs every sample block, with no read of the valid-frame count."""
+    runs every sample block, with no read of the valid-frame count. A
+    ``stats`` dict gets ``hand_neighbors_max``, the largest neighbourhood
+    searched, as a 0-dim int64 tensor on the device (no host read)."""
     params = SearchParams.from_config(cfg)
     rgrid = constant(rotation_grid(cfg.angles, cfg.hand_axes),
                      sample_pos.device)
@@ -317,6 +469,9 @@ def search_hands_with_frames(cloud, sample_pos, frames, fvalid,
 
     S = sample_pos.shape[0]
     M = rgrid.shape[0]
+    if stats is not None:
+        stats["hand_neighbors_max"] = torch.cat(
+            [out["members"], out["members"].new_zeros(1)]).max().long()
 
     def flat(a):
         # (M, S, ...) -> (S, M, ...) -> (S*M, ...)

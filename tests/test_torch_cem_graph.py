@@ -19,6 +19,7 @@ from gpd_tpu_torch import cem
 from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.detector import GraspDetector
+from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
 from test_torch_threads import set_cpu_share
 
@@ -88,23 +89,27 @@ def test_returned_grasps_survive_the_next_request():
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
     """The capture records each wrapper's launches into the graph: one
-    raster_blocks launch per round at one chunk a round, none of the
-    3-channel kernels. A replay calls no wrapper, and a profiler trace of
-    it shows the card running the recorded raster_blocks launches."""
+    raster_blocks launch per round at one chunk a round and one hand_search
+    launch per round, none of the 3-channel kernels. A replay calls no
+    wrapper, and a profiler trace of it shows the card running the
+    recorded raster_blocks and hand_search launches."""
     needs_card()
     sis, cloud = scene_sis()
     sis.detect(cloud, generator=seeded(0), verbose=False)
     (entry,) = sis.graphs.values()
-    assert entry.launches == [1 + CEM_KW["num_iterations"], 0, 0]
-    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2)
+    rounds = 1 + CEM_KW["num_iterations"]
+    assert entry.launches == [rounds, 0, 0, rounds]
+    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
+                cand.hand_search)
     before = [k.launches for k in wrappers]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         sis.detect(cloud, generator=seeded(1), verbose=False)
     assert [k.launches for k in wrappers] == before
-    ran = [e for e in prof.events() if "raster_blocks" in e.name
-           and e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(ran) == entry.launches[0]
+    for name in ("raster_blocks", "hand_search"):
+        ran = [e for e in prof.events() if name in e.name
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ran) == rounds, name
 
 
 @pytest.mark.cuda

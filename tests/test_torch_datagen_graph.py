@@ -268,11 +268,15 @@ def test_graph_labels_equal_eager_labels(channels):
 def test_datagen_b_keys_share_one_images_buffer():
     """Every B key with images of one shape writes into the detector's one
     images buffer, outside the graphs' pool: the images are not an output
-    of any graph, and no B capture adds their bytes to the pool."""
+    of any graph, and no B capture adds their bytes to the pool. A detect
+    request on the view first captures A and a B without images, so the
+    pool already holds a B's working set (the raster planes of a chunk)
+    and what a B with images adds is what it keeps."""
     needs_card()
     gen, view, mesh = zoo_unit()
     det = gen.detector
     g = torch.Generator(device="cuda")
+    det.detect(view, generator=g.manual_seed(0), verbose=False)
     for seed in range(3):
         gen.generate_view(view, mesh, g.manual_seed(seed),
                           np.random.default_rng(0))

@@ -31,6 +31,8 @@ from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
+from gpd_tpu_torch.ops.frames import estimate_frames
+from gpd_tpu_torch.ops.neighbors import radius_neighbors
 from test_torch_threads import set_cpu_share
 
 set_cpu_share()
@@ -70,9 +72,10 @@ def _no_host_read(*args, **kwargs):
 def test_parts_read_nothing_back(channels):
     """A, B and C, called with their static arguments, run with every way
     of reading a tensor back to the host patched to raise; A's counts are
-    the valid hands, active samples, valid samples and cloud points. The
-    eager detect_core + select_and_cluster trips the same guard. The hand
-    search runs in two sample blocks (``two_hand_blocks``)."""
+    the valid hands, active samples, valid samples, cloud points and the
+    largest hand-search neighbourhood. The eager detect_core +
+    select_and_cluster trips the same guard. The hand search runs in two
+    sample blocks (``two_hand_blocks``)."""
     from test_torch_cem import HOST_READS, run_patched
     det, cloud = rods_detector(channels)
     cfg = det.effective_config(cloud)
@@ -83,11 +86,16 @@ def test_parts_read_nothing_back(channels):
     g = gen(0)
     grasps, spos, smask, counts = run_patched(
         patches, lambda: tdet.candidates_program(cloud, None, None, g, cfg))
-    n_valid, n_active, n_samples, n_points = counts.tolist()
+    n_valid, n_active, n_samples, n_points, n_hood = counts.tolist()
     active = grasps.valid.reshape(cfg.num_samples, -1).any(1) & smask
-    assert [n_valid, n_active, n_samples, n_points] == [
+    _, fvalid = estimate_frames(spos, smask, cloud.points, cloud.mask,
+                                cloud.normals, radius=cfg.nn_radius_frames)
+    _, member = radius_neighbors(spos, fvalid, cloud.points, cloud.mask,
+                                 cfg.hand_search_radius,
+                                 cfg.search_neighbors_cap)
+    assert [n_valid, n_active, n_samples, n_points, n_hood] == [
         int(grasps.valid.sum()), int(active.sum()), int(smask.sum()),
-        int(cloud.mask.sum())]
+        int(cloud.mask.sum()), int(member.sum(1).max())]
     assert 0 < n_valid and 0 < n_active <= n_samples == cfg.num_samples
     out = run_patched(patches, lambda: tdet.select_and_cluster(
         tdet.score_candidates(cloud, grasps, spos, smask, det.net, g, cfg,
@@ -251,25 +259,28 @@ def test_returned_grasps_survive_the_next_request():
 
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
-    """The capture of B records its raster_blocks launches (one per live
-    chunk), A's and C's none. A replay calls no wrapper, and a profiler
-    trace of it shows the card running B's recorded launches."""
+    """The capture of A records its one hand_search launch, B's its
+    raster_blocks launches (one per live chunk), C's none. A replay calls
+    no wrapper, and a profiler trace of it shows the card running the
+    recorded launches."""
     needs_card()
     det, cloud = table_detector()
     det.detect(cloud, generator=seeded(0), verbose=False)
     a, b, c = (det.graphs[k] for k in det.last_graphs)
     chunks = det.last_graphs[1][-2] // det.image_cap(1000)
-    assert a.launches == c.launches == [0, 0, 0]
-    assert b.launches == [chunks, 0, 0] and chunks >= 1
-    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2)
+    assert a.launches == [0, 0, 0, 1] and c.launches == [0, 0, 0, 0]
+    assert b.launches == [chunks, 0, 0, 0] and chunks >= 1
+    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
+                cand.hand_search)
     before = [k.launches for k in wrappers]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         det.detect(cloud, generator=seeded(0), verbose=False)
     assert [k.launches for k in wrappers] == before
-    ran = [e for e in prof.events() if "raster_blocks" in e.name
-           and e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(ran) == chunks
+    for name, n in (("raster_blocks", chunks), ("hand_search", 1)):
+        ran = [e for e in prof.events() if name in e.name
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ran) == n, name
 
 
 @pytest.mark.cuda

@@ -1,15 +1,26 @@
 """The port's kernel wrappers, without JAX: argument checks and the CPU
 dispatch here, and each CUDA kernel against its plain version on the card
-(marked ``cuda``; skips without a card). On a machine with a card:
+(marked ``cuda``; skips without a card). The hand search's premise, that
+its plain version ignores everything but the members of each row and
+their order, holds here on the CPU. On a machine with a card:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
+
+import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from gpd_tpu_torch import detector as tdet
+from gpd_tpu_torch.config import DetectorConfig
+from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
+from gpd_tpu_torch.ops.frames import estimate_frames
 from test_torch_threads import set_cpu_share
 
 set_cpu_share()
@@ -213,3 +224,248 @@ def test_raster_kernel_at_the_staged_chunk_on_card():
     assert torch.equal(out[:, counts], ref[:, counts])
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
     assert img.raster_blocks.launches == before + 1
+
+
+# The hand search (csrc/hand_search.cu against _eval_orientations).
+
+SEARCH_OUTPUTS = ("R", "pos", "top", "bottom", "center", "width", "mid",
+                  "valid", "full", "half")
+
+
+def cylinder_cloud(num_samples=48, seed=21):
+    """Two capped 30 mm cylinders 0.4 m apart seen by two cameras,
+    preprocessed on the CPU, with samples drawn from them: narrow enough
+    to grasp and dense enough that the search finds full antipodal hands;
+    a sample's radius holds one cylinder, about half the cloud. Returns
+    (cloud, cfg, sample_pos, mask)."""
+    rng = np.random.default_rng(seed)
+    pts, nrm = syn.sample_cylinder(rng, 0.03, 0.1, 6000)
+    pts = np.concatenate([pts, pts + np.float32([0.4, 0.0, 0.0])])
+    nrm = np.concatenate([nrm, nrm])
+    cams = np.array([[0.5, 0.1, 0.2], [-0.3, 0.45, 0.1]], np.float32)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, cams)
+    det = tdet.GraspDetector(DetectorConfig(num_samples=num_samples),
+                             device="cpu")
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    cfg = det.effective_config(cloud)
+    spos, smask = tdet.sample_points(cloud, torch.Generator().manual_seed(0),
+                                     cfg)
+    return cloud, cfg, spos, smask
+
+
+def search_inputs(cloud, cfg, spos, smask, k=None):
+    """(points, normals, sample_pos, frames, rfix, member, idx, params) of
+    the hand search at the samples: identity rows when ``k`` is None, else
+    the capped route's nearest-k rows."""
+    frames, fvalid = estimate_frames(spos, smask, cloud.points, cloud.mask,
+                                     cloud.normals,
+                                     radius=cfg.nn_radius_frames)
+    member, idx = cand._search_neighbors(
+        spos, fvalid, cloud.points, cloud.mask, cfg.hand_search_radius,
+        cloud.capacity if k is None else k)
+    rfix = torch.from_numpy(cand.rotation_grid(cfg.angles, cfg.hand_axes)
+                            ).to(spos.device)
+    return (cloud.points, cloud.normals, spos, frames, rfix, member, idx,
+            cand.SearchParams.from_config(cfg))
+
+
+@pytest.mark.parametrize("route", ["identity", "capped"])
+@pytest.mark.parametrize("how", ["dropped", "permuted"])
+def test_plain_search_ignores_non_members_and_order(how, route):
+    """The kernel's premise on the plain version: _eval_orientations gives
+    bit-identical outputs when each row keeps only its in-radius members
+    (the rest moved far away and masked), and when those are permuted."""
+    cloud, cfg, spos, smask = cylinder_cloud()
+    points, normals, spos, frames, rfix, member, idx, params = search_inputs(
+        cloud, cfg, spos, smask, None if route == "identity" else 2048)
+    if idx is None:
+        idx = torch.arange(points.shape[0]).expand(member.shape)
+    ref = cand._eval_orientations(points[idx] - spos[:, None],
+                                  normals[idx], member, frames, rfix, params)
+    assert ref["full"].any() and ref["valid"].any()
+    S = spos.shape[0]
+    width = int(member.sum(1).max())
+    order = torch.argsort(~member, dim=1, stable=True)[:, :width]
+    if how == "permuted":
+        gen = torch.Generator().manual_seed(1)
+        order = torch.stack([row[torch.randperm(width, generator=gen)]
+                             for row in order])
+    keep = torch.gather(member, 1, order)
+    sub = torch.gather(idx, 1, order)
+    rel = torch.where(keep[..., None], points[sub] - spos[:, None],
+                      torch.tensor(1e3))
+    nrm = torch.where(keep[..., None], normals[sub], torch.tensor(0.0))
+    out = cand._eval_orientations(rel, nrm, keep, frames, rfix, params)
+    assert width < member.shape[1] and S == 48
+    for k in SEARCH_OUTPUTS:
+        assert torch.equal(out[k], ref[k]), k
+
+
+def test_hand_search_wrapper_checks_and_cpu_dispatch():
+    """On the CPU the wrapper is the plain version, with each sample's
+    member count, and launches nothing; it refuses operands the kernel does
+    not take."""
+    cloud, cfg, spos, smask = cylinder_cloud(num_samples=16)
+    args = list(search_inputs(cloud, cfg, spos, smask))
+    points, normals, spos, frames, rfix, member, idx, params = args
+    before = cand.hand_search.launches
+    out, members = cand.hand_search(*args)
+    ref = cand._eval_orientations(points[None] - spos[:, None],
+                                  normals[None].expand(16, -1, 3), member,
+                                  frames, rfix, params)
+    for k in SEARCH_OUTPUTS:
+        assert torch.equal(out[k], ref[k]), k
+    assert members.dtype == torch.int32
+    assert torch.equal(members, member.sum(1).int())
+    capped = list(search_inputs(cloud, cfg, spos, smask, k=256))
+    out_c, members_c = cand.hand_search(*capped)
+    assert torch.equal(members_c, capped[5].sum(1).int())
+    assert cand.hand_search.launches == before     # no kernel on the CPU
+
+    def call(i, value):
+        a = list(args)
+        a[i] = value
+        cand.hand_search(*a)
+    bad = [(0, points.double()),                   # dtype
+           (3, frames[:, :2]),                     # shape
+           (5, member[:, :-1]),                    # identity rows cover N
+           (5, member.int()),
+           (5, member[:-1]),
+           (6, torch.zeros(member.shape, dtype=torch.int32)),
+           (6, torch.zeros((16, 4), dtype=torch.int64)),
+           (2, spos.t().contiguous().t()),         # contiguity
+           (4, rfix.to("meta"))]                   # one device
+    for i, value in bad:
+        with pytest.raises(ValueError):
+            call(i, value)
+    with pytest.raises(ValueError):                # 2P slabs past 64
+        call(7, dataclasses.replace(params, num_placements=33))
+    assert cand.hand_search.launches == before
+
+
+def benchmark_cloud(kind):
+    """The first cloud of the benchmark's table (15-channel) or PCD
+    (3-channel) traffic, preprocessed on the card as its cell does, and
+    that cell's DetectorConfig."""
+    from h100_bench.entries.serve import program_config
+    from h100_bench.inputs import generate
+    cell, name = {"table": ("table_stream", "gpd15"),
+                  "pcd": ("pcd_stream", "gpd3")}[kind]
+    root = os.path.join(os.path.dirname(__file__), os.pardir, "h100_bench")
+    with open(os.path.join(root, "traffic", cell + ".json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(root, "configs", name + ".json")) as f:
+        spec = json.load(f)
+    mix["scene_seeds"] = mix["scene_seeds"][:1]
+    det = tdet.GraspDetector(program_config(spec["detector"],
+                                            spec["weights"]), device="cuda")
+    if kind == "table":
+        (it,) = generate.table_scenes(mix)
+        cloud = det.preprocess_cloud(it["points"],
+                                     view_points=it["view_points"],
+                                     cam_source=it["cam_source"])
+    else:
+        (pts,) = generate.single_camera_scenes(mix)
+        cam = np.asarray(det.cfg.camera_position, np.float32).reshape(1, 3)
+        cloud = det.preprocess_cloud(pts, view_points=cam, capacity="serve")
+    return cloud, det.effective_config(cloud)
+
+
+def hold_search(out, members, ref, member, label):
+    """The kernel's outputs against the plain version's: member counts
+    exactly; each flag and ``mid`` equal on at least 99.9% of slots; the
+    values within 1e-5 where ``valid`` agrees (R everywhere). Prints the
+    mismatch counts."""
+    torch.cuda.synchronize()
+    assert torch.equal(members, member.sum(1).int())
+    n = ref["valid"].numel()
+    off = {k: int((out[k] != ref[k]).sum())
+           for k in ("valid", "full", "half", "mid")}
+    print(f"hand_search {label}: {n} slots, {int(ref['valid'].sum())} valid, "
+          f"{int(ref['full'].sum())} full; mismatches {off}; members max "
+          f"{int(members.max())}")
+    for k, bad in off.items():
+        assert bad <= n // 1000, (k, bad)
+    agree = out["valid"] == ref["valid"]
+    torch.testing.assert_close(out["R"], ref["R"], atol=1e-5, rtol=0)
+    for k in ("top", "bottom", "center", "width", "pos"):
+        torch.testing.assert_close(out[k][agree], ref[k][agree], atol=1e-5,
+                                   rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,K,axes,S", [
+    ("table", None, (2,), 1000),     # identity rows, capacity 14336
+    ("pcd", None, (2,), 1000),       # identity rows, capacity 8192
+    ("table", 4096, (2,), 1000),     # the capped route's nearest 4096
+    ("table", None, (0, 1, 2), 37),  # M = 24
+    ("pcd", 4096, (0, 1, 2), 37),
+])
+def test_hand_search_matches_plain_version_on_card(kind, K, axes, S):
+    """The kernel against _eval_orientations on the card, on the
+    benchmark's own clouds and samples, twice (one launch each)."""
+    needs_card()
+    cloud, cfg = benchmark_cloud(kind)
+    assert cloud.capacity == {"table": 14336, "pcd": 8192}[kind]
+    cfg = dataclasses.replace(cfg, hand_axes=axes)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    spos, smask = tdet.sample_points(cloud, gen, cfg)
+    args = search_inputs(cloud, cfg, spos[:S].contiguous(), smask[:S], K)
+    points, normals, spos, frames, rfix, member, idx, params = args
+    rows = (torch.arange(points.shape[0], device="cuda").expand(member.shape)
+            if idx is None else idx)
+    ref = cand._eval_orientations(points[rows] - spos[:, None],
+                                  normals[rows], member, frames, rfix, params)
+    before = cand.hand_search.launches
+    for _ in range(2):
+        out, members = cand.hand_search(*args)
+        hold_search(out, members, ref, member,
+                    f"{kind} K={member.shape[1]} M={rfix.shape[0]} S={S}")
+    assert cand.hand_search.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["identity", "capped"])
+def test_hand_search_edge_cases_on_card(route):
+    """A neighbourhood of 4x the shared-memory tile (swept in tiles), a
+    sample with no member, one with an invalid frame; then every frame
+    invalid. Against the plain version on the card."""
+    needs_card()
+    rng = np.random.default_rng(9)
+    n = 4 * cand.HAND_TILE + 100
+    pts, nrm = syn.sample_cylinder(rng, 0.015, 0.1, n)
+    pts = np.concatenate([pts, [[5.0, 5.0, 5.0]]]).astype(np.float32)
+    nrm = np.concatenate([nrm, [[0.0, 0.0, 1.0]]]).astype(np.float32)
+    points = torch.from_numpy(pts).cuda()
+    normals = torch.from_numpy(nrm).cuda()
+    mask = torch.ones(len(pts), dtype=torch.bool, device="cuda")
+    spos = points[[0, 1, 2, 3, n]].contiguous()
+    spos[4] += 1.0                                   # no member
+    cfg = DetectorConfig()
+    frames, fvalid = estimate_frames(spos, torch.ones(5, dtype=torch.bool,
+                                                      device="cuda"),
+                                     points, mask, normals,
+                                     radius=cfg.nn_radius_frames)
+    fvalid[3] = False                                # an invalid frame
+    rfix = torch.from_numpy(cand.rotation_grid(cfg.angles, (0, 1, 2))).cuda()
+    params = cand.SearchParams.from_config(cfg)
+    k = len(pts) if route == "identity" else len(pts) - 1
+    for fv in (fvalid, torch.zeros_like(fvalid)):
+        member, idx = cand._search_neighbors(spos, fv, points, mask,
+                                             cfg.hand_search_radius, k)
+        rows = (torch.arange(len(pts), device="cuda").expand(member.shape)
+                if idx is None else idx)
+        ref = cand._eval_orientations(points[rows] - spos[:, None],
+                                      normals[rows], member, frames, rfix,
+                                      params)
+        out, members = cand.hand_search(points, normals, spos, frames, rfix,
+                                        member, idx, params)
+        hold_search(out, members, ref, member, f"edge cases, {route}")
+        assert int(members.max()) <= (4 * cand.HAND_TILE + 100
+                                      if fv.any() else 0)
+        if fv.any():
+            assert int(members[0]) > 3 * cand.HAND_TILE
+            assert int(members[3]) == int(members[4]) == 0
+        for key in SEARCH_OUTPUTS:
+            if key != "R":
+                assert torch.equal(out[key][:, 3:], ref[key][:, 3:]), key
