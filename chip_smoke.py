@@ -67,13 +67,16 @@ Phases; any failure exits non-zero and prints no result line:
   5. CEM: SequentialImportanceSampling at the default CEMConfig on the same
      scenes, one warm-up, then per scene with SUM_OF_GAUSSIANS and for
      request 0's scene with MAX_OF_GAUSSIANS the fused route (the default
-     on a card: one CUDA graph per static key, captured at its first
-     request) and the loop (_force_loop) in turns, each request from a
+     on a card: two CUDA graphs per static key, the rounds and the
+     scoring, captured at its first request and replayed back to back)
+     and the loop (_force_loop) in turns, each request from a
      generator of the same seed; every fused request must find the loop's
      round counts, a grasp with finite scores and >= 90% of the loop's
      selection by position (1e-5), a key's later requests capture
-     nothing and call no kernel wrapper, and one traced replay per key must
-     run on the card the kernel launches its capture recorded; prints ms
+     nothing and call no kernel wrapper, each request's scored batch must
+     hold its round counts, and one traced replay per key must run on the
+     card the kernel launches its captures recorded, from two graph
+     launches; prints ms
      per request of both routes, the capture's ms and the pool bytes the
      SIS's keys share, and raster_blocks launches per fused replay (from
      the trace);
@@ -1177,6 +1180,16 @@ def span_launches(events, span):
     return out
 
 
+def graph_launches(events, span):
+    """The ``cudaGraphLaunch`` calls of a profiler trace inside its one
+    ``span``."""
+    (sp,) = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation" and e.get("name") == span]
+    return sum(1 for e in events if e.get("cat") == "cuda_runtime"
+               and e.get("name", "").startswith("cudaGraphLaunch")
+               and sp["ts"] <= e["ts"] <= sp["ts"] + sp["dur"])
+
+
 def captured_launches(entry):
     """A captured graph's launches per kernel family (span_launches'), as
     its capture recorded them."""
@@ -1190,18 +1203,22 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
              label="CEM"):
     """CEM (SequentialImportanceSampling) at the default CEMConfig on the
     15-channel path's scenes, by the fused route (the default on the card:
-    one CUDA graph per static key, captured at the key's first request) and
+    two CUDA graphs per static key, R the rounds and S the scoring,
+    captured at the key's first request and replayed back to back) and
     by the loop (_force_loop), in turns (fused, loop, loop, fused, after
     the fused route's first request), every request from a generator of
     the same seed: ``runs``' (scene, sampling method) pairs, by default a
     scene each with SUM_OF_GAUSSIANS, then request 0's scene with
     MAX_OF_GAUSSIANS. Fails unless every fused request finds the
     loop's round counts, selects a grasp with finite scores and shares >=
-    90% of the loop's selection by position (1e-5), and a key's later
+    90% of the loop's selection by position (1e-5), returns a scored batch
+    whose rounds hold their counts of valid hands (``last_scored``,
+    ``last_round_slots``) with the loop's valid slots, and a key's later
     requests capture nothing and call no kernel wrapper. After the turns,
     one more fused request of the key is traced; it must run on the card
-    the launches the key's capture recorded. Returns the launches of the
-    traced replays (from their traces) and the loop requests' counts."""
+    the launches the key's captures recorded, from two graph launches.
+    Returns the launches of the traced replays (from their traces) and the
+    loop requests' counts."""
     fused = cem.SequentialImportanceSampling(det, CEMConfig())
     loop = cem.SequentialImportanceSampling(det, CEMConfig())
     loop._force_loop = True
@@ -1238,7 +1255,7 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
                      f"seen: nothing captured")
         n_graphs = len(fused.graphs)
         ms = {"fused": [], "loop": []}
-        res = {}
+        res, scored = {}, {}
         for route in ("fused", "loop", "loop", "fused"):
             sis = fused if route == "fused" else loop
             before = counts(img)
@@ -1254,12 +1271,19 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
             res.setdefault(route, []).append(
                 (list(sis.last_round_counts), sis.last_num_grasps,
                  out.to_host(), delta["raster_blocks"]))
+            valid = sis.last_scored.valid.cpu().numpy()
+            scored.setdefault(route, []).append(valid)
+            if [int(valid[a:a + n].sum()) for a, n in
+                    sis.last_round_slots] != sis.last_round_counts:
+                fail(f"{label} request {r} ({name}): the {route} route's "
+                     f"scored batch does not hold its round counts")
         entry = fused.graphs[fused.graph_key(cloud)]
         want = captured_launches(entry)
         d = os.path.join(traces.name, f"cem_{r}_{method}")
-        ran = span_launches(traced(profiling, lambda: fused.detect(
-            cloud, generator=seeded(torch, r), verbose=False), d),
-            "cem_program")
+        events = traced(profiling, lambda: fused.detect(
+            cloud, generator=seeded(torch, r), verbose=False), d)
+        ran = span_launches(events, "cem_program")
+        graphs = graph_launches(events, "cem_program")
         for k in KERNELS:
             by_route["fused"][k] += ran.get(k, 0)
         rounds_l, grasps_l, sel_l, launch_l = res["loop"][0]
@@ -1276,8 +1300,10 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
               f"turns: fused {ms['fused']}, loop {ms['loop']}; {first}; "
               f"raster_blocks launches per fused request: wrapper calls "
               f"{[f[3] for f in res['fused']]}, run by a traced replay "
-              f"{ran['raster_blocks']} (its capture recorded "
-              f"{want['raster_blocks']}; loop {launch_l}); top scores "
+              f"{ran['raster_blocks']} from {graphs} graph launches (its "
+              f"captures recorded {want['raster_blocks']}; loop "
+              f"{launch_l}); image slots {fused.last_counts['image_slots']} "
+              f"for {fused.last_counts['live_hands']} valid hands; top scores "
               f"{np.round(scores[:5], 3).tolist()}")
         for rounds_f, grasps_f, sel_f, launch_f in res["fused"]:
             if rounds_f != rounds_l:
@@ -1290,9 +1316,14 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
             if launch_f != 0:
                 fail(f"{label} request {r} ({name}): a fused request of a "
                      f"seen key called a kernel wrapper: it ran eagerly")
-        if ran != want or ran["raster_blocks"] < 1:
-            fail(f"{label} request {r} ({name}): a traced replay ran {ran}, "
-                 f"its capture recorded {want}")
+        if ran != want or ran["raster_blocks"] < 1 or graphs != 2:
+            fail(f"{label} request {r} ({name}): a traced replay ran {ran} "
+                 f"from {graphs} graph launches, its captures recorded "
+                 f"{want} in 2 graphs")
+        if any(not np.array_equal(v, scored["loop"][0])
+               for v in scored["fused"]):
+            fail(f"{label} request {r} ({name}): the fused route's scored "
+                 f"batch has other valid slots than the loop's")
         if min(shares) < 0.9:
             fail(f"{label} request {r} ({name}): the fused route shares "
                  f"{min(shares):.1%} of the loop's selection")
@@ -1722,15 +1753,16 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
     events = traced(profiling, lambda: sis.detect(
         cloud, generator=seeded(torch, 0), verbose=False),
         os.path.join(tmp, "cem_fused"))
-    read_trace(events, ("cem_program",),
-               "15-channel CEM request, fused route (graph replay)", 5)
+    read_trace(events, ("cem_program", "cem_rounds", "cem_scoring"),
+               "15-channel CEM request, fused route (R and S replayed)", 5)
     (entry,) = sis.graphs.values()
     ran, want = span_launches(events, "cem_program"), captured_launches(entry)
+    graphs = graph_launches(events, "cem_program")
     print(f"profiler, fused CEM replay: kernel launches run {ran}, its "
-          f"capture recorded {want}")
-    if ran != want:
-        fail(f"the traced fused replay ran {ran}, its capture recorded "
-             f"{want}")
+          f"captures recorded {want}; graph launches {graphs}")
+    if ran != want or graphs != 2:
+        fail(f"the traced fused replay ran {ran} from {graphs} graph "
+             f"launches, its captures recorded {want} in 2 graphs")
 
 
 def classify_times(torch, lenet, net):
@@ -2497,7 +2529,7 @@ def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
     """CEM at the default CEMConfig on one seed by three routes: the mesh
     loop through the detector's programs (CUDA graphs: each round's
     candidates, draw and scores, the selection), the eager mesh loop
-    (_force_eager) and the fused route (no mesh: one CUDA graph); the graph
+    (_force_eager) and the fused route (no mesh: two CUDA graphs); the graph
     loop's first request apart (its captures), then graph, eager, fused,
     fused, eager, graph, then one traced request by each route. Fails
     unless all three find the same round counts, the two mesh loops the

@@ -39,7 +39,15 @@ so a request's spans are those nested in its ``detect``, with the
     train_upload        net.train.fit: a block's permutation, images, labels
     train_steps         net.train.fit: the loop over one block's steps
     train_eval          net.train.fit: each evaluate call (ends in a read)
-    cem_program, cem_capture   the fused CEM request and its capture
+    cem_detect          SequentialImportanceSampling.detect: a CEM request
+      cem_capture         a new fused key's warm-ups and two captures
+      cem_program         the fused route: on a card the two replays and
+                          the read, on the CPU the eager body and the read
+        cem_rounds          R's replay (the rounds)
+        cem_scoring         S's replay (scoring, selection) and the read
+      cem_rounds,         the loop's (``_force_loop``, ``mesh=``) phases
+      cem_scoring,
+      select_and_cluster
 
 ``StageTimer.stage`` opens a span of its stage's name too.
 """

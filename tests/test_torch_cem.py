@@ -381,7 +381,7 @@ def test_cli_against_gpd_tpu(tmp_path, capsys):
 
 def test_cem_phases_are_profiler_spans(tmp_path):
     """A CEM request under profiling.maybe_trace: its three phases are
-    spans of the trace."""
+    spans of the trace, inside the request's cem_detect."""
     p, cs, vp = rods_only(5)
     det = tdet.GraspDetector(DetectorConfig(
         image_geometry=ImageGeometry(num_channels=3), **ROD_KW), device="cpu")
@@ -395,7 +395,8 @@ def test_cem_phases_are_profiler_spans(tmp_path):
     with open(tmp_path / name) as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"]
-    assert {"cem_rounds", "cem_scoring", "select_and_cluster"} <= set(names)
+    assert {"cem_detect", "cem_rounds", "cem_scoring",
+            "select_and_cluster"} <= set(names)
 
 
 def test_cem_traces_itself_under_gpd_tpu_profile(tmp_path, monkeypatch):
@@ -445,10 +446,24 @@ def test_fused_program_equals_the_loop(channels, method):
         fused = sis.detect(cloud, generator=g_fused, verbose=False)
     assert program.call_count == 1
     counts, n_fused = sis.last_round_counts, sis.last_num_grasps
+    scored, slots, stats = sis.last_scored, sis.last_round_slots, \
+        sis.last_counts
     sis._force_loop = True
     loop = sis.detect(cloud, generator=g_loop, verbose=False)
     assert counts == sis.last_round_counts and min(counts) > 0
     assert n_fused == sis.last_num_grasps > 0
+    # The scored batch both routes return: the same slots, every round's
+    # valid hands among them, and the counters read from it.
+    assert slots == sis.last_round_slots
+    assert stats == sis.last_counts == {
+        "live_hands": sum(counts), "image_slots": scored.capacity}
+    np.testing.assert_array_equal(scored.valid.numpy(),
+                                  sis.last_scored.valid.numpy())
+    assert [int(scored.valid[a:a + n].sum()) for a, n in slots] == counts
+    live = scored.valid.numpy()
+    np.testing.assert_allclose(scored.score.numpy()[live],
+                               sis.last_scored.score.numpy()[live],
+                               atol=1e-5)
     vf, vl = fused.valid.numpy(), loop.valid.numpy()
     np.testing.assert_array_equal(vf, vl)
     np.testing.assert_allclose(fused.position.numpy()[vf],
@@ -480,17 +495,21 @@ def test_program_reads_nothing_back(channels, method):
     args = sis.program_args(cloud)
     patches = [mock.patch.object(torch.Tensor, name, _no_host_read)
                for name in HOST_READS]
-    out, counts = run_patched(patches, lambda: tcem._cem_program(
-        cloud, sis.detector.net, gen(0), *args))
+    out, counts, scored, slots = run_patched(
+        patches, lambda: tcem._cem_program(cloud, sis.detector.net, gen(0),
+                                           *args))
     assert counts.shape == (3,) and int(counts.min()) > 0
     assert out.valid.any()
+    assert [n for _, n in slots] == [24 * 8, 20 * 8, 20 * 8]
+    assert scored.capacity == slots[-1][0] + 256
     with pytest.raises(AssertionError, match="read a tensor back"):
         run_patched(patches, lambda: sis._detect_loop(cloud, gen(0)))
 
 
 def test_fused_request_is_one_profiler_span(tmp_path):
-    """The fused route is traced as one span, cem_program, and none of the
-    loop's phases."""
+    """The fused route on the CPU is traced as one span, cem_program, in
+    the request's cem_detect, and none of the loop's phases (on a card
+    cem_program holds R's and S's replays, tests/test_torch_cem_graph.py)."""
     sis, cloud = rods_sis(3, draws.SUM_OF_GAUSSIANS)
     with profiling.maybe_trace(str(tmp_path)):
         sis.detect(cloud, generator=gen(1), verbose=False)
@@ -498,5 +517,5 @@ def test_fused_request_is_one_profiler_span(tmp_path):
     with open(tmp_path / name) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
-    assert "cem_program" in names
+    assert {"cem_detect", "cem_program"} <= names
     assert not names & {"cem_rounds", "cem_scoring", "select_and_cluster"}

@@ -3,13 +3,17 @@
 
     python -m pytest tests/test_torch_cem_graph.py -m cuda --noconftest
 
-A CEM request on a card replays one captured graph per static key
+A CEM request on a card replays two captured graphs per static key, R (the
+rounds) and S (the scoring and the selection), back to back
 (``SequentialImportanceSampling.graphs``, gpd_tpu_torch/cem.py). These hold
-the cache to one capture per key, the returned grasps to copies that the
-next replay leaves alone, a replay to the launches its capture recorded,
-the keys of one shared pool to their own results, and the graph to the
-loop's round counts and generator state.
+the cache to one capture of each per key, a request to the two launches
+with no host read between them and one after, the returned grasps to
+copies that the next replay leaves alone, a replay to the launches its
+captures recorded, the keys of one shared pool to their own results, and
+the graphs to the loop's round counts, scored batch and generator state.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -68,6 +72,32 @@ def test_one_capture_per_key():
     assert len(sis.graphs) == 2
     sis.detect(bigger, generator=seeded(2), verbose=False)
     assert len(sis.graphs) == 2
+
+
+@pytest.mark.cuda
+def test_request_launches_two_graphs_then_reads(tmp_path):
+    """A request of a seen key, traced: two graph launches (R, then S)
+    with no copy or wait between them, and the one read (a copy to the
+    host and its wait) after S's launch."""
+    needs_card()
+    sis, cloud = scene_sis()
+    sis.detect(cloud, generator=seeded(0), verbose=False)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sis.detect(cloud, generator=seeded(1), verbose=False)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        calls = sorted((e["ts"], e["name"]) for e in json.load(f)[
+            "traceEvents"] if e.get("ph") == "X"
+            and e.get("cat") == "cuda_runtime")
+    launches = [t for t, n in calls if n.startswith("cudaGraphLaunch")]
+    assert len(launches) == 2 and len(sis.graphs) == 1
+    reads = [t for t, n in calls
+             if n.startswith(("cudaMemcpy", "cudaStreamSynchronize",
+                              "cudaDeviceSynchronize"))]
+    assert not [t for t in reads if launches[0] < t < launches[1]]
+    assert [t for t in reads if t > launches[1]]
 
 
 @pytest.mark.cuda
@@ -137,18 +167,27 @@ def test_keys_in_one_pool_keep_their_results():
 
 @pytest.mark.cuda
 def test_graph_keeps_the_loop_rounds_and_draws():
-    """The replayed graph and the loop on one generator seed: the same
-    round counts, and the generator left at the same state."""
+    """The replayed graphs and the loop on one generator seed: the same
+    round counts and scored batch's valid slots, and the generator left at
+    the same state."""
     needs_card()
     sis, cloud = scene_sis()
     g_fused, g_loop = seeded(4), seeded(4)
     sis.detect(cloud, generator=seeded(0), verbose=False)     # captures
     sis.detect(cloud, generator=g_fused, verbose=False)
     counts = sis.last_round_counts
+    valid = sis.last_scored.valid.cpu().numpy()
+    slots, stats = sis.last_round_slots, sis.last_counts
     sis._force_loop = True
     sis.detect(cloud, generator=g_loop, verbose=False)
     assert counts == sis.last_round_counts and min(counts) > 0
     assert torch.equal(g_fused.get_state(), g_loop.get_state())
+    # The scored batch: the same slots valid, each round's hands at its
+    # slots, the counters alike.
+    np.testing.assert_array_equal(valid,
+                                  sis.last_scored.valid.cpu().numpy())
+    assert slots == sis.last_round_slots and stats == sis.last_counts
+    assert [int(valid[a:a + n].sum()) for a, n in slots] == counts
 
 
 @pytest.mark.cuda
