@@ -21,7 +21,14 @@ Phases; any failure exits non-zero and prints no result line:
      133, 256; K 200, 2047, 3072; with and without shadows, Cp 4 and 2,
      Cp 6 and 3); then raster_blocks at the staged route's chunk of 4096
      hands. Every check runs the kernel twice: counts exactly equal,
-     values within atol 1e-3 + rtol 1e-5. Then hand_search against its
+     values within atol 1e-3 + rtol 1e-5. Then raster_images (the sums
+     finished into uint8 image channels in the kernel, make_images'
+     route at 12 and 15 channels) against _raster_finish of
+     raster_blocks_ref at 512 hands (15 and 12 channels) and at the
+     staged chunk (15), twice: every pixel within one level; each timed
+     beside raster_blocks + _raster_finish, the plain route and its bound
+     (``python3 chip_smoke.py images`` runs this check alone). Then
+     hand_search against its
      plain version (_eval_orientations) on the benchmark's first table
      cloud (capacity 14336) and first PCD cloud (8192), 1000 samples, 8
      orientations, identity rows: flags and mid equal on >= 99.9% of
@@ -282,7 +289,10 @@ import numpy as np
 REQUESTS = 3
 KERNELS = ("raster_blocks", "raster_sums", "raster_sums2", "hand_search")
 # Kernel families of a profiler trace (raster_sums2's kernels are
-# raster_sums').
+# raster_sums'; both kernels of csrc/raster_blocks.cu, the sums and the
+# images, are raster_blocks'). A path's "raster_blocks" launches count
+# the wrapper calls of raster_blocks and of raster_images (make_images'
+# route at 12 and 15 channels) together.
 FAMILIES = ("raster_blocks", "raster_sums", "hand_search")
 # The hand search's check: (kind, traffic, configuration, capacity of the
 # traffic's first cloud) of the benchmark's two serving cells.
@@ -475,6 +485,74 @@ def time_raster(torch, img, args, ref, size):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 bound_ratio=ms / bound_ms)
+
+
+def images_ref(img, args, size):
+    """The plain route's images of raster operands: _raster_finish of
+    raster_blocks_ref, (G, C, size, size) uint8."""
+    return img._raster_finish(img.raster_blocks_ref(*args, size), size,
+                              12 if args[2] is None else 15)
+
+
+def check_images(torch, img):
+    """raster_images (the sums finished into uint8 channels in the kernel)
+    against the plain route (images_ref), twice, at 512 hands with 2048
+    points and 2048 shadow points, 15 channels and 12 (no shadows), then
+    at the staged chunk of 4096 hands at 15: every pixel within one level
+    (the sums' atomics add in a run-dependent order), the share of unequal
+    pixels printed. Each timed beside the route it replaces on the card
+    (raster_blocks, then _raster_finish: ``replaced_ms``), the plain route
+    and its bound: the operands read once and the uint8 images written
+    once, at the HBM rate. Returns the kernels-line entries: 15 channels,
+    12 channels (each with the staged chunk's fields under
+    ``staged_chunk`` at 15)."""
+    size, K = 60, 2048
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entries = []
+    for G in (512, 4096):
+        args = raster_operands(torch, gen, G, K, K, size)
+        for with_shadow in ((True, False) if G == 512 else (True,)):
+            a = args if with_shadow else (*args[:2], None, None)
+            C = 15 if with_shadow else 12
+            ref = images_ref(img, a, size)
+            share = 0.0
+            for _ in range(2):
+                out = img.raster_images(*a, size)
+                torch.cuda.synchronize()
+                gap = (out.int() - ref.int()).abs()
+                if int(gap.max()) > 1:
+                    fail(f"raster_images G={G} C={C}: a pixel "
+                         f"{int(gap.max())} levels off the plain route")
+                share = max(share, float((gap > 0).float().mean()))
+            del out, gap, ref
+            ms = cuda_ms(torch, lambda *x: img.raster_images(*x, size), a)
+            replaced_ms = cuda_ms(torch, lambda *x: img._raster_finish(
+                img.raster_blocks(*x, size), size, C), a)
+            plain_ms = cuda_ms(torch, lambda *x: images_ref(img, x, size), a,
+                               iters=3, warmup=1)
+            nbytes = (sum(t.numel() * t.element_size() for t in a
+                          if t is not None) + G * C * size * size)
+            bound_ms, bound_by = bound(nbytes, 0)
+            print(f"raster_images G={G} Km={K} Ks={K if with_shadow else 0} "
+                  f"C={C}: unequal pixels {share:.3e} (max gap 1); "
+                  f"{ms:.4f} ms against raster_blocks + _raster_finish "
+                  f"{replaced_ms:.4f} ms ({replaced_ms / ms:.2f}x), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB); ms / bound_ms = "
+                  f"{ms / bound_ms:.2f}")
+            e = dict(name="raster_images", channels=C, route="cuda",
+                     source="gpd_tpu_torch/csrc/raster_blocks.cu",
+                     replaces="gpd_tpu/ops/images.py:204 and :638",
+                     unequal_share=share, ms=ms, replaced_ms=replaced_ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     bound_ratio=ms / bound_ms)
+            if G == 512:
+                entries.append(e)
+            else:
+                entries[0]["staged_chunk"] = e
+        del args
+        torch.cuda.empty_cache()
+    return entries
 
 
 def check_raster_staged_chunk(torch, img):
@@ -1193,8 +1271,8 @@ def graph_launches(events, span):
 def captured_launches(entry):
     """A captured graph's launches per kernel family (span_launches'), as
     its capture recorded them."""
-    n = dict(zip(KERNELS, entry.launches))
-    return {"raster_blocks": n["raster_blocks"],
+    n = dict(zip(KERNELS + ("raster_images",), entry.launches))
+    return {"raster_blocks": n["raster_blocks"] + n["raster_images"],
             "raster_sums": n["raster_sums"] + n["raster_sums2"],
             "hand_search": n["hand_search"]}
 
@@ -3081,10 +3159,15 @@ def wrapper(img, name):
 def reset_counts(img):
     for name in KERNELS:
         wrapper(img, name).launches = 0
+    img.raster_images.launches = 0
 
 
 def counts(img):
-    return {name: wrapper(img, name).launches for name in KERNELS}
+    """Wrapper calls per name of KERNELS, raster_images' under
+    "raster_blocks" (FAMILIES)."""
+    n = {name: wrapper(img, name).launches for name in KERNELS}
+    n["raster_blocks"] += img.raster_images.launches
+    return n
 
 
 def stage_breakdown(torch, det, prepare, kernel, label):
@@ -3835,6 +3918,23 @@ def widths_only(torch, card):
         "launches": {**by12, **by1}}))
 
 
+def images_only(torch, card):
+    """``python3 chip_smoke.py images``: raster_images' check and timing
+    alone (phase 3's images check), after the build's register and spill
+    lines; prints its kernels-line entries last."""
+    from gpd_tpu_torch.ops import _build
+    from gpd_tpu_torch.ops import images as img
+
+    for name, log in _build.build(["raster_blocks"]).items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line or "stack" in line:
+                print(f"  {name}: {line.strip()}")
+    entries = check_images(torch, img)
+    print(card)
+    print(json.dumps({"kernels": entries}))
+
+
 def hand_search_only(torch, card):
     """``python3 chip_smoke.py hand_search``: the hand search's check and
     timing alone (phase 3's last check); prints its kernels-line entry
@@ -3874,6 +3974,8 @@ def main():
         return widths_only(torch, card)
     if sys.argv[1:2] == ["hand_search"]:
         return hand_search_only(torch, card)
+    if sys.argv[1:2] == ["images"]:
+        return images_only(torch, card)
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -3915,6 +4017,7 @@ def main():
     entries = {"raster_blocks": shadow, **check_sums(torch, img)}
     entries["raster_blocks"]["staged_chunk"] = check_raster_staged_chunk(
         torch, img)
+    images15, images12 = check_images(torch, img)
     entries["hand_search"] = check_hand_search(torch, cand, detector,
                                                GraspDetector)
 
@@ -3927,7 +4030,7 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     p, cs, vp = scene(syn, 0)
     stage_breakdown(torch, det, lambda: det.preprocess_cloud(
-        p, view_points=vp, cam_source=cs), img.raster_blocks,
+        p, view_points=vp, cam_source=cs), img.raster_images,
         "15 channels, request 0 scene")
     neighbor_routes(torch, det, det.preprocess_cloud(
         p, view_points=vp, cam_source=cs), "15 channels, request 0 scene")
@@ -4005,7 +4108,7 @@ def main():
                      DetectorConfig, convert_weights, trained, tmp)
 
     reference_check(torch, syn, lenet, GraspDetector, detector,
-                    DetectorConfig(num_samples=32), img.raster_blocks)
+                    DetectorConfig(num_samples=32), img.raster_images)
     reference_check(torch, syn, lenet, GraspDetector, detector,
                     DetectorConfig(num_samples=32, image_geometry=ImageGeometry(
                         num_channels=3)), img.raster_sums)
@@ -4072,12 +4175,20 @@ def main():
     entries["raster_blocks"]["launches_by_path"][
         "classifier pipeline, one gen_dataset view, graph route (from its "
         "trace)"] = traced_q
-    keys = ("name", "shadows", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "bound_ratio", "launches_by_path", "staged_chunk",
-            "pcd", "mismatches", "members_max", "note")
+    # Every path's images take raster_images: the family's launches are
+    # its, and raster_blocks alone runs in the kernel checks only.
+    for sums, images in ((entries["raster_blocks"], images15),
+                         (free, images12)):
+        for k in ("launches", "launches_by_path"):
+            images[k] = sums.pop(k)
+    keys = ("name", "shadows", "channels", "route", "source", "replaces",
+            "launches", "max_abs_err", "unequal_share", "ms", "replaced_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_ratio",
+            "launches_by_path", "staged_chunk", "pcd", "mismatches",
+            "members_max", "note")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
-                                  for e in [*entries.values(), free]]}))
+                                  for e in [*entries.values(), free,
+                                            images15, images12]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -523,7 +523,7 @@ def select_and_cluster(grasps: Grasps, cfg: DetectorConfig) -> Grasps:
 
 # The kernel wrappers whose calls a capture records into its graph.
 _KERNELS = (img.raster_blocks, img.raster_sums, img.raster_sums2,
-            cand.hand_search)
+            cand.hand_search, img.raster_images)
 
 
 def _tensors(tree) -> list:

@@ -9,8 +9,10 @@ max-pool dilation and a per-image minmax give uint8 images.
 Two routes, as in gpd_tpu:
 
   - 12 and 15 channels: gpd_tpu's channel-major route (images.py:774-814)
-    on both devices. ``raster_blocks`` sums the three projections in one
-    kernel; value channels enter it in bfloat16 and are summed in float32.
+    on both devices. ``raster_images`` sums the three projections in one
+    kernel and finishes each hand's channels there (on the CPU:
+    ``raster_blocks_ref``, then ``_raster_finish``); value channels enter
+    it in bfloat16 and are summed in float32.
   - 1 and 3 channels: projection P0 only (images.py:711-736).
     ``scatter_mean`` sums it with ``raster_sums``, all in float32 (gpd_tpu's
     CPU route and ``Precision.HIGHEST``; its TPU kernel takes one bf16 MXU
@@ -288,6 +290,32 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _launch_blocks(symbol: str, out, midx, mvals, sidx, svals, size: int):
+    """Runs ``symbol`` of csrc/raster_blocks.cu (``raster_blocks_launch``
+    or ``raster_images_launch``) on checked CUDA operands into ``out``."""
+    if midx.device.type != "cuda":
+        raise ValueError(f"raster_blocks runs on cuda or cpu, not "
+                         f"{midx.device}")
+    lib = _build.load("raster_blocks")
+    fn = getattr(lib, symbol)
+    fn.argtypes = _RASTER_ARGTYPES
+    fn.restype = ctypes.c_int
+    G, _, Km = midx.shape
+    with_shadow = sidx is not None
+    Ks = sidx.shape[-1] if with_shadow else 0
+    with torch.cuda.device(midx.device):
+        stream = torch.cuda.current_stream(midx.device).cuda_stream
+        err = fn(midx.data_ptr(), mvals.data_ptr(),
+                 sidx.data_ptr() if with_shadow else None,
+                 svals.data_ptr() if with_shadow else None,
+                 out.data_ptr(), G, Km, Ks, size, int(with_shadow),
+                 _num_sms(midx.device.index), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    return out
+
+
 def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
     """All per-cell sums of the 12/15-channel grasp images of G hands.
 
@@ -307,39 +335,53 @@ def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
     CUDA tensors launch the kernel in csrc/raster_blocks.cu (built at first
     use; its header notes the bound on the H100 and the design); CPU
     tensors take ``raster_blocks_ref``. ``raster_blocks.launches`` counts
-    kernel launches.
+    kernel launches. ``make_images`` takes ``raster_images`` instead.
     """
     _check_operands(midx, mvals, sidx, svals, size)
     if midx.device.type == "cpu":
         return raster_blocks_ref(midx, mvals, sidx, svals, size)
-    if midx.device.type != "cuda":
-        raise ValueError(f"raster_blocks runs on cuda or cpu, not "
-                         f"{midx.device}")
-    lib = _build.load("raster_blocks")
-    fn = lib.raster_blocks_launch
-    fn.argtypes = _RASTER_ARGTYPES
-    fn.restype = ctypes.c_int
-    G, _, Km = midx.shape
-    with_shadow = sidx is not None
-    Ks = sidx.shape[-1] if with_shadow else 0
-    R = raster_rows(size)
-    out = torch.empty((G, 21 if with_shadow else 15, R, R),
+    out = torch.empty((midx.shape[0], 15 if sidx is None else 21,
+                       raster_rows(size), raster_rows(size)),
                       dtype=torch.float32, device=midx.device)
-    with torch.cuda.device(midx.device):
-        stream = torch.cuda.current_stream(midx.device).cuda_stream
-        err = fn(midx.data_ptr(), mvals.data_ptr(),
-                 sidx.data_ptr() if with_shadow else None,
-                 svals.data_ptr() if with_shadow else None,
-                 out.data_ptr(), G, Km, Ks, size, int(with_shadow),
-                 _num_sms(midx.device.index), stream)
-    if err != 0:
-        raise RuntimeError(f"raster_blocks launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
+    _launch_blocks("raster_blocks_launch", out, midx, mvals, sidx, svals,
+                   size)
     raster_blocks.launches += 1
     return out
 
 
 raster_blocks.launches = 0
+
+
+def raster_images(midx, mvals, sidx=None, svals=None, size: int = 60):
+    """The finished 12/15-channel grasp images of G hands, in one launch:
+    ``_raster_finish(raster_blocks(...))`` with the operands of
+    ``raster_blocks``.
+
+    Returns (G, C, size, size) uint8, C = 15 with shadow operands, else 12:
+    per projection the three dilated mean |n| channels (one minmax), the
+    dilated depth image, and at 15 channels the dilated shadow image.
+
+    CUDA tensors launch csrc/raster_blocks.cu's images kernel: the same
+    sums, each hand's planes finished in shared memory, only the uint8
+    images written; from the same f32 sums its bytes are
+    ``_raster_finish``'s (the sums' atomics add in a run-dependent order).
+    CPU tensors take ``_raster_finish(raster_blocks_ref(...))``.
+    ``raster_images.launches`` counts kernel launches.
+    """
+    _check_operands(midx, mvals, sidx, svals, size)
+    num_channels = 12 if sidx is None else 15
+    if midx.device.type == "cpu":
+        return _raster_finish(raster_blocks_ref(midx, mvals, sidx, svals,
+                                                size), size, num_channels)
+    out = torch.empty((midx.shape[0], num_channels, size, size),
+                      dtype=torch.uint8, device=midx.device)
+    _launch_blocks("raster_images_launch", out, midx, mvals, sidx, svals,
+                   size)
+    raster_images.launches += 1
+    return out
+
+
+raster_images.launches = 0
 
 
 def raster_sums_ref(rows, cols, aug, size: int):
@@ -540,7 +582,7 @@ def make_images(nn_pts, nn_nrm, nn_valid, hand_R, hand_sample, hand_bottom,
       shadow_pts/shadow_valid: (G, Ks, 3)/(G, Ks) world-frame occluded
         points (15 channels only).
 
-    12 and 15 channels take ``raster_blocks``, 1 and 3 ``raster_sums``.
+    12 and 15 channels take ``raster_images``, 1 and 3 ``raster_sums``.
     Returns (G, size, size, C) uint8, a channels-last view of channel-major
     storage.
     """
@@ -577,5 +619,4 @@ def make_images(nn_pts, nn_nrm, nn_valid, hand_R, hand_sample, hand_bottom,
                                               hand_center, image)
         sins = sins & shadow_valid & hand_valid[:, None]
         sidx, svals = _cm_operands(su, sv, sw, sins, [], size)
-    raw = raster_blocks(midx, mvals, sidx, svals, size)
-    return _raster_finish(raw, size, image.num_channels).permute(0, 2, 3, 1)
+    return raster_images(midx, mvals, sidx, svals, size).permute(0, 2, 3, 1)

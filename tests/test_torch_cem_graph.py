@@ -119,18 +119,19 @@ def test_returned_grasps_survive_the_next_request():
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
     """The capture records each wrapper's launches into the graph: one
-    raster_blocks launch per round at one chunk a round and one hand_search
-    launch per round, none of the 3-channel kernels. A replay calls no
-    wrapper, and a profiler trace of it shows the card running the
-    recorded raster_blocks and hand_search launches."""
+    raster_images launch per round at one chunk a round and one hand_search
+    launch per round, none of the 3-channel kernels nor raster_blocks'
+    sums alone. A replay calls no wrapper, and a profiler trace of it
+    shows the card running the recorded launches (the images kernel's
+    name holds raster_blocks)."""
     needs_card()
     sis, cloud = scene_sis()
     sis.detect(cloud, generator=seeded(0), verbose=False)
     (entry,) = sis.graphs.values()
     rounds = 1 + CEM_KW["num_iterations"]
-    assert entry.launches == [rounds, 0, 0, rounds]
+    assert entry.launches == [0, 0, 0, rounds, rounds]
     wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
-                cand.hand_search)
+                cand.hand_search, img.raster_images)
     before = [k.launches for k in wrappers]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -240,10 +240,10 @@ def test_one_capture_per_datagen_key():
     assert {k[0] for k in seen} == {"candidates", "score", "relabel"}
     assert all(k[-1] == "images" for k in seen if k[0] == "score")
     assert set(attempt_keys(det)) == seen
-    n, before = len(det.graphs), img.raster_blocks.launches
+    n, before = len(det.graphs), img.raster_images.launches
     gen.generate_view(view, mesh, g.manual_seed(0), np.random.default_rng(0))
     assert len(det.graphs) == n and set(det.last_graphs) == seen
-    assert img.raster_blocks.launches == before
+    assert img.raster_images.launches == before
 
 
 @pytest.mark.cuda

@@ -260,18 +260,18 @@ def test_returned_grasps_survive_the_next_request():
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
     """The capture of A records its one hand_search launch, B's its
-    raster_blocks launches (one per live chunk), C's none. A replay calls
+    raster_images launches (one per live chunk), C's none. A replay calls
     no wrapper, and a profiler trace of it shows the card running the
-    recorded launches."""
+    recorded launches (the images kernel's name holds raster_blocks)."""
     needs_card()
     det, cloud = table_detector()
     det.detect(cloud, generator=seeded(0), verbose=False)
     a, b, c = (det.graphs[k] for k in det.last_graphs)
     chunks = det.last_graphs[1][-2] // det.image_cap(1000)
-    assert a.launches == [0, 0, 0, 1] and c.launches == [0, 0, 0, 0]
-    assert b.launches == [chunks, 0, 0, 0] and chunks >= 1
+    assert a.launches == [0, 0, 0, 1, 0] and c.launches == [0, 0, 0, 0, 0]
+    assert b.launches == [0, 0, 0, 0, chunks] and chunks >= 1
     wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
-                cand.hand_search)
+                cand.hand_search, img.raster_images)
     before = [k.launches for k in wrappers]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from gpd_tpu_torch import detector as tdet
-from gpd_tpu_torch.config import DetectorConfig
+from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
 from gpd_tpu_torch.ops.frames import estimate_frames
@@ -224,6 +225,265 @@ def test_raster_kernel_at_the_staged_chunk_on_card():
     assert torch.equal(out[:, counts], ref[:, counts])
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
     assert img.raster_blocks.launches == before + 1
+
+
+# The images kernel (raster_images: raster_blocks' sums finished into
+# uint8 channels in the kernel) against _raster_finish(raster_blocks_ref).
+
+def images_ref(args, size=SIZE):
+    """The plain route's images of raster operands (None for no shadows):
+    (G, C, size, size) uint8."""
+    return img._raster_finish(img.raster_blocks_ref(*args, size=size), size,
+                              12 if args[2] is None else 15)
+
+
+@pytest.mark.parametrize("with_shadow", [True, False])
+def test_images_wrapper_checks_and_cpu_dispatch(with_shadow):
+    """On the CPU raster_images is the plain route bit for bit (15
+    channels with shadow operands, 12 without), launches nothing, and
+    refuses operands raster_blocks refuses."""
+    rng = np.random.default_rng(6)
+    mi, mv = raster_operands(rng, 3, 128, 6)
+    si, sv = raster_operands(rng, 3, 96, 3)
+    args = (mi, mv, si, sv) if with_shadow else (mi, mv, None, None)
+    C = 15 if with_shadow else 12
+    before = img.raster_images.launches
+    out = img.raster_images(*args, size=SIZE)
+    assert out.shape == (3, C, SIZE, SIZE) and out.dtype == torch.uint8
+    assert torch.equal(out, images_ref(args))
+    assert out.any()
+    assert img.raster_images.launches == before     # no kernel on the CPU
+    with pytest.raises(ValueError):
+        img.raster_images(mi, mv.float(), *args[2:], size=SIZE)
+    with pytest.raises(ValueError):
+        img.raster_images(mi, mv, si, None, size=SIZE)
+    with pytest.raises(ValueError):
+        img.raster_images(*args, size=200)
+    assert img.raster_images.launches == before
+
+
+def image_hands(channels, G=5, K=64, seed=9):
+    """make_images' arguments for G hands around the origin with K points
+    each (and K shadow points at 15 channels), about half of them inside
+    the image volume."""
+    rng = np.random.default_rng(seed)
+    geo = ImageGeometry(num_channels=channels)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    pts = rng.uniform(-0.06, 0.06, (G, K, 3))
+    nrm = rng.normal(size=(G, K, 3))
+    R = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0]
+                  for _ in range(G)])
+    hands = (T(pts), T(nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)),
+             torch.ones((G, K), dtype=torch.bool), T(R),
+             T(rng.uniform(-0.01, 0.01, (G, 3))), T(np.full(G, -0.03)),
+             T(np.zeros(G)), torch.ones(G, dtype=torch.bool), geo)
+    shadow = {}
+    if channels == 15:
+        shadow = dict(shadow_pts=T(rng.uniform(-0.06, 0.06, (G, K, 3))),
+                      shadow_valid=torch.ones((G, K), dtype=torch.bool))
+    return hands, shadow
+
+
+@pytest.mark.parametrize("channels", [15, 12])
+def test_make_images_cpu_route_finishes_on_the_host(channels, monkeypatch):
+    """On the CPU make_images still sums with raster_blocks_ref and
+    finishes with _raster_finish, once per call, and launches nothing."""
+    calls = []
+    finish = img._raster_finish
+
+    def counted(*args):
+        calls.append(args[1:])
+        return finish(*args)
+    monkeypatch.setattr(img, "_raster_finish", counted)
+    hands, shadow = image_hands(channels)
+    before = img.raster_images.launches
+    out = img.make_images(*hands, **shadow)
+    assert calls == [(SIZE, channels)]
+    assert out.shape == (5, SIZE, SIZE, channels) and out.any()
+    assert img.raster_images.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [15, 12])
+def test_make_images_card_route_never_finishes_on_the_host(channels,
+                                                           monkeypatch):
+    """On the card make_images launches the images kernel once and runs no
+    op of _raster_finish; its images are the CPU route's within one
+    level."""
+    needs_card()
+    hands, shadow = image_hands(channels, G=64, K=512)
+    ref = img.make_images(*hands, **shadow)
+
+    def refuse(*args):
+        raise AssertionError("the card route called _raster_finish")
+    monkeypatch.setattr(img, "_raster_finish", refuse)
+    moved = [h.cuda() if isinstance(h, torch.Tensor) else h for h in hands]
+    before = img.raster_images.launches
+    out = img.make_images(*moved, **{k: v.cuda() for k, v in shadow.items()})
+    torch.cuda.synchronize()
+    assert img.raster_images.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.uint8
+    assert int((out.cpu().int() - ref.int()).abs().max()) <= 1
+
+
+def hold_images(args, size=SIZE, ref=None, exact=False, label=""):
+    """raster_images on the card against the plain route's images (``ref``,
+    else images_ref on the CPU), twice: every pixel within one level, and
+    with ``exact`` (value sums exact in any order) equal bit for bit; one
+    launch a call. Prints the share of unequal pixels."""
+    if ref is None:
+        ref = images_ref([None if a is None else a.cpu() for a in args],
+                         size).cuda()
+    before = img.raster_images.launches
+    for _ in range(2):
+        out = img.raster_images(*args, size=size)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == torch.uint8
+        gap = (out.int() - ref.int()).abs()
+        print(f"raster_images {label} G={args[0].shape[0]} C={ref.shape[1]}: "
+              f"unequal pixels {float((gap > 0).float().mean()):.3e}, "
+              f"max gap {int(gap.max())}")
+        assert int(gap.max()) <= 1
+        if exact:
+            assert torch.equal(out, ref)
+    assert img.raster_images.launches == before + 2
+
+
+def exact_values(vals):
+    """Values on a grid of 1/16 in [0, 1): every partial sum of up to 2^14
+    of them is exact in f32, so the sums do not depend on the atomics'
+    order."""
+    return (torch.floor(vals.float() * 16) / 16).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,K", [(512, 2048), (133, 2047), (1, 200),
+                                 (256, 3072)])
+@pytest.mark.parametrize("with_shadow", [True, False])
+def test_images_kernel_matches_plain_route_on_card(with_shadow, K, G):
+    """The main path's chunk (512 hands, 2048 points and shadow points),
+    ragged hand counts and K not a multiple of 4: within one level on
+    random values, equal on values whose sums are exact."""
+    needs_card()
+    rng = np.random.default_rng(G + K)
+    mi, mv = raster_operands(rng, G, K, 6)
+    si, sv = raster_operands(rng, G, K, 3)
+    if not with_shadow:
+        si = sv = None
+    args = [None if t is None else t.cuda() for t in (mi, mv, si, sv)]
+    hold_images(args, label="random")
+    args[1] = exact_values(args[1])
+    if with_shadow:
+        args[3] = exact_values(args[3])
+    hold_images(args, exact=True, label="exact sums")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_shadow", [True, False])
+def test_images_kernel_edge_hands_on_card(with_shadow):
+    """Hand 0 has no point inside (every channel 0: its ranges are 0);
+    hand 1 no shadow point inside (mx = 0); hand 2 one point of value 0.5
+    in every cell of every projection (each dilated plane constant: range
+    0, all 0); hand 3 random. Values exact, so equal bit for bit."""
+    needs_card()
+    K = SIZE * SIZE
+    rng = np.random.default_rng(12)
+    mi, mv = raster_operands(rng, 4, K, 6)
+    si, sv = raster_operands(rng, 4, K, 3)
+    cells = torch.arange(K, dtype=torch.int32)
+    full = torch.stack([cells // SIZE, cells // SIZE, cells % SIZE,
+                        cells % SIZE])
+    for idx, vals in ((mi, mv), (si, sv)):
+        idx[0] = SIZE
+        vals[0] = 0
+        idx[2] = full
+        vals[2] = 0.5
+    si[1] = SIZE
+    sv[1] = 0
+    args = [mi, mv, si, sv] if with_shadow else [mi, mv, None, None]
+    args = [None if t is None else t.cuda() for t in args]
+    args[1] = exact_values(args[1])
+    if with_shadow:
+        args[3] = exact_values(args[3])
+    hold_images(args, exact=True, label="edge hands")
+    out = img.raster_images(*args, size=SIZE)
+    assert not out[0].any() and not out[2].any() and out[3].any()
+    if with_shadow:
+        assert not out[1, 4::5].any() and out[1, 0].any()
+
+
+@pytest.mark.cuda
+def test_images_kernel_at_the_staged_chunk_on_card():
+    """raster_images at the staged route's largest chunk, 4096 hands with
+    2048 points and 2048 shadow points each, against the plain route run
+    on the card."""
+    needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    G, K = 4096, 2048
+
+    def operands(nval):
+        cells = torch.randint(0, SIZE, (G, 4, K), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        inside = torch.rand((G, 1, K), generator=gen, device="cuda") < 0.6
+        idx = torch.where(inside, cells, SIZE).to(torch.int32).contiguous()
+        vals = torch.rand((G, nval, K), generator=gen, device="cuda") * inside
+        return idx, vals.to(torch.bfloat16).contiguous()
+    args = [*operands(6), *operands(3)]
+    hold_images(args, ref=images_ref(args), label="staged chunk")
+
+
+@pytest.mark.cuda
+def test_program_b_keeps_the_kernel_images_on_card(monkeypatch):
+    """score_candidates at 15 channels with images kept in ``images_out``
+    (data generation's B): each live chunk's kept images are the images
+    kernel's output for that chunk, which is within one level of the
+    plain route on the same operands, and its scores are LeNet's on the
+    kept images; the chunks past the live ones stay zero."""
+    needs_card()
+    det = tdet.GraspDetector(DetectorConfig(num_samples=200), device="cuda")
+    rng = np.random.default_rng(8)
+    pts, nrm = syn.make_scene(rng, n_objects=2)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm,
+                                       syn.view_cameras(rng, 2))
+    cloud = det.preprocess_cloud(p, view_points=vp, cam_source=cs)
+    cfg = det.effective_config(cloud)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    spos, smask = det.sample_cloud(cloud, gen)
+    grasps = tdet.candidates_stage(cloud, spos, smask, cfg)
+    calls, kernel = [], img.raster_images
+
+    def recording(*args, **kw):
+        out = kernel(*args, **kw)
+        calls.append(([a.cpu() if isinstance(a, torch.Tensor) else None
+                       for a in args[:4]], out.clone()))
+        return out
+    # raster_images counts its launches on the module's name, this one.
+    recording.launches = 0
+    monkeypatch.setattr(img, "raster_images", recording)
+    cap = det.image_cap(spos.shape[0])
+    n_chunks = -(-grasps.capacity // cap)
+    kept = torch.full((n_chunks * cap, SIZE, SIZE, 15), 7, dtype=torch.uint8,
+                      device="cuda")
+    scored, images = tdet.score_candidates(
+        cloud, grasps, spos, smask, det.net, gen, cfg, cap,
+        scores_only=False, images_out=kept)
+    torch.cuda.synchronize()
+    n_valid = int(scored.valid.sum())
+    assert images is kept and n_valid > 0
+    assert len(calls) == -(-n_valid // cap)
+    for i, (args, out) in enumerate(calls):
+        chunk = slice(i * cap, (i + 1) * cap)
+        assert torch.equal(kept[chunk], out.permute(0, 2, 3, 1))
+        ref = images_ref(args).cuda()
+        gap = (out.int() - ref.int()).abs()
+        print(f"program B chunk {i}: unequal pixels "
+              f"{float((gap > 0).float().mean()):.3e}")
+        assert int(gap.max()) <= 1
+        valid = scored.valid[chunk]
+        torch.testing.assert_close(
+            scored.score[chunk][valid],
+            lenet.score(det.net, kept[chunk])[valid])
+    assert not kept[len(calls) * cap:].any()
 
 
 # The hand search (csrc/hand_search.cu against _eval_orientations).

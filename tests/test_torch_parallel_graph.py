@@ -328,9 +328,9 @@ def test_one_capture_per_key_on_the_card(nccl_one):
     one_pass(0)
     names = sorted({k[0] for k in det.graphs})
     n = len(det.graphs)
-    before = img.raster_blocks.launches
+    before = img.raster_images.launches
     one_pass(1)
-    assert len(det.graphs) == n and img.raster_blocks.launches == before
+    assert len(det.graphs) == n and img.raster_images.launches == before
     assert {"candidates", "score", "sharded_select", "sharded_candidates",
             "sharded_score", "cem_round"} <= set(names)
 
