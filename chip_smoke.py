@@ -62,9 +62,9 @@ Phases; any failure exits non-zero and prints no result line:
      graph request >= 90% of the eager route's selection by position
      (1e-5), a request of seen keys must capture nothing and call no
      kernel wrapper, and the traced replay must run in its detect_core
-     span the raster_blocks kernels its captures recorded; then request
-     0's scene once more through detect with sync_stages (the eager
-     route), so each stage's time is its own (host clock). Per scene
+     span the raster_images kernels its captures recorded; then request
+     0's scene once more through detect(staged=True) at detect's image
+     chunk, so each stage's time is its own (host clock). Per scene
      last, whole requests (preprocess_cloud + detect) by the graph routes
      and the eager routes in turns, beside the 100 ms request limit. On
      request 0's scene, radius_neighbors over detect's samples at the image
@@ -85,7 +85,7 @@ Phases; any failure exits non-zero and prints no result line:
      card the kernel launches its captures recorded, from two graph
      launches; prints ms
      per request of both routes, the capture's ms and the pool bytes the
-     SIS's keys share, and raster_blocks launches per fused replay (from
+     SIS's keys share, and raster_images launches per fused replay (from
      the trace);
   6. staged: request 0's scene through detect(staged=True) at a cap of
      4096 hands, its four-line report and peak memory; it must find
@@ -236,17 +236,17 @@ Phases; any failure exits non-zero and prints no result line:
      clutter view through a 15- and a 3-channel detector from one
      generator state: channels 0:3 of the raster_blocks images within the
      image gate of the raster_sums images; one traced graph view of
-     gen_dataset's (its raster_blocks = those its captures recorded); the
+     gen_dataset's (its raster_images = those its captures recorded); the
      HDF5 CLIs where h5py imports, else one line saying they did not run.
      ``python3 chip_smoke.py classifier [OBJECTS VIEWS SCENES EPOCHS]``
      runs this phase alone (by default at the tools' defaults, 24 x 8, 8
      scenes, 6 epochs) and prints a summary line last;
  20. 12 and 1 channels, each on a detector of its own (random init from
      seed 0: no packaged checkpoint exists at these widths), freed after
-     it. 12 channels (raster_blocks without shadows) at the default
+     it. 12 channels (raster_images without shadows) at the default
      DetectorConfig otherwise: per scene of phase 4 what phase 4 does for
      detect and whole requests (graph against eager in turns, one traced
-     replay running the raster_blocks its captures recorded); on scene 0
+     replay running the raster_images its captures recorded); on scene 0
      the card against the same detector's CPU route (frames within 1e-4
      where well conditioned; from the CPU's frames the same valid hands
      within 1e-5; one image chunk within the image gate); CEM's fused
@@ -257,21 +257,23 @@ Phases; any failure exits non-zero and prints no result line:
      replay, then the card against the CPU route on the first scene.
      ``python3 chip_smoke.py widths`` runs raster_blocks' check and this
      phase alone and prints a summary line last;
- 21. the kernels line (with each kernel's launches per path, data
-     generation's per view by each route too; a second raster_blocks
-     entry, shadows false, for the 12-channel paths), the card line, and
-     the status line last.
+ 21. the kernels line (with each kernel's launches per path under its own
+     name, data generation's per view by each route too; a second
+     raster_blocks entry, shadows false; the 12/15-channel paths' launches
+     on the raster_images entries), the card line, and the status line
+     last.
 
 Before each path of phases 4-10, 14, 19 and 20 every kernel's launch count
-is set to 0; it is read just after the path's requests. A wrapper counts
-where it launches its kernel: eagerly, or into a CUDA graph during a
-capture. A replay calls no wrapper, so the kernels a replay runs are
+(the launch registry, ops/_build.py's LAUNCHES) is set to 0; it is read
+just after the path's requests. A wrapper's launch counts where it
+launches its kernel: eagerly, or into a CUDA graph during a capture. A replay calls no wrapper, so the kernels a replay runs are
 counted from a profiler trace of it: the device kernels launched inside
 its ``detect_core`` (detect) or ``cem_program`` (CEM) span. Phases 7-9
 run after phase 6, phases 13-15 before phase 10; phases 12, 17 and 18
 run late, 16 with them, and phases 19 and 20 last.
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -287,13 +289,12 @@ import time
 import numpy as np
 
 REQUESTS = 3
-KERNELS = ("raster_blocks", "raster_sums", "raster_sums2", "hand_search")
-# Kernel families of a profiler trace (raster_sums2's kernels are
-# raster_sums'; both kernels of csrc/raster_blocks.cu, the sums and the
-# images, are raster_blocks'). A path's "raster_blocks" launches count
-# the wrapper calls of raster_blocks and of raster_images (make_images'
-# route at 12 and 15 channels) together.
-FAMILIES = ("raster_blocks", "raster_sums", "hand_search")
+# The kernel wrappers, each counting its launches under its own name.
+KERNELS = ("raster_blocks", "raster_images", "raster_sums", "raster_sums2",
+           "hand_search")
+# Kernel families of a profiler trace: a wrapper's kernels by their names
+# (raster_sums2's kernels are raster_sums').
+FAMILIES = ("raster_blocks", "raster_images", "raster_sums", "hand_search")
 # The hand search's check: (kind, traffic, configuration, capacity of the
 # traffic's first cloud) of the benchmark's two serving cells.
 HAND_SEARCH_CLOUDS = (("table", "table_stream", "gpd15", 14336),
@@ -1002,7 +1003,7 @@ def graph_turns(torch, img, profiling, det, request, label, family, d):
     res = {"graph": [], "eager": []}
     for route in ("graph", "eager", "eager", "graph"):
         det._force_eager = route == "eager"
-        before = counts(img)
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1010,17 +1011,14 @@ def graph_turns(torch, img, profiling, det, request, label, family, d):
         finally:
             det._force_eager = False
         ms = round((time.perf_counter() - t0) * 1e3, 2)
-        calls = sum(v - before[k] for k, v in counts(img).items())
+        calls = sum(v - before[k] for k, v in counts().items())
         res[route].append((ms, dict(det.last_counts), out, calls,
                            dict(det.last_runtimes)))
     spans = ("detect_core", "select_and_cluster")
     events = traced(profiling, request, d)
     ran = span_launches(events, "detect_core")
     graph = read_trace(events, spans, f"{label}, graph replay", 0)
-    want = dict.fromkeys(FAMILIES, 0)
-    for k in det.last_graphs:
-        for family_k, n in captured_launches(det.graphs[k]).items():
-            want[family_k] += n
+    want = captured_launches(*(det.graphs[k] for k in det.last_graphs))
     pair = det.last_graphs[1][-2:]
     det._force_eager = True
     try:
@@ -1086,7 +1084,7 @@ def main_path(torch, img, profiling, syn, det, cpu_det):
     print(f"warm-up request (preprocess_cloud + detect): "
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
 
-    reset_counts(img)
+    reset_counts()
     ran = dict.fromkeys(FAMILIES, 0)
     traces = tempfile.TemporaryDirectory()
     for r in range(REQUESTS):
@@ -1102,7 +1100,7 @@ def main_path(torch, img, profiling, syn, det, cpu_det):
         r_ran = graph_turns(
             torch, img, profiling, det, lambda: det.detect(
                 cloud, generator=seeded(torch, r), verbose=False),
-            f"request {r}", "raster_blocks",
+            f"request {r}", "raster_images",
             os.path.join(traces.name, f"detect_{r}"))
         for k, v in r_ran.items():
             ran[k] += v
@@ -1110,14 +1108,14 @@ def main_path(torch, img, profiling, syn, det, cpu_det):
             prep(det), generator=seeded(torch, r), verbose=False),
             f"request {r}")
     traces.cleanup()
-    launches = counts(img)
-    if launches["raster_blocks"] < 1:
-        fail("the 15-channel path never launched raster_blocks")
+    launches = counts()
+    if launches["raster_images"] < 1:
+        fail("the 15-channel path never launched raster_images")
     print(f"launches on the 15-channel path: wrapper calls {launches} "
           f"(warm-ups and captures, and {5 * REQUESTS} eager requests, "
           f"{REQUESTS} of them traced); "
           f"{len(det.graphs)} graphs captured; traced replays ran "
-          f"{ran['raster_blocks'] / REQUESTS:.2f} raster_blocks and "
+          f"{ran['raster_images'] / REQUESTS:.2f} raster_images and "
           f"{ran['hand_search'] / REQUESTS:.2f} hand_search per request")
     return launches, {**ran, "raster_sums2": 0}
 
@@ -1157,7 +1155,7 @@ def entry_point_3ch(torch, img, profiling, pcd, det, cpu_det, paths, tmp):
     det.detect_file(paths[0], verbose=False, generator=seeded(torch, 100))
     print(f"3-channel warm-up request (detect_file): "
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
-    reset_counts(img)
+    reset_counts()
     ran = dict.fromkeys(FAMILIES, 0)
     cam = np.asarray(det.cfg.camera_position, np.float32).reshape(1, 3)
     for r, path in enumerate(paths[1:]):
@@ -1180,7 +1178,7 @@ def entry_point_3ch(torch, img, profiling, pcd, det, cpu_det, paths, tmp):
         request_turns(torch, det, lambda: det.detect(
             prep(det), generator=seeded(torch, r), verbose=False),
             f"3-channel request {r} (file read apart)")
-    launches = counts(img)
+    launches = counts()
     if launches["raster_sums"] < 1:
         fail("the 3-channel path never launched raster_sums")
     print(f"launches on the 3-channel path: wrapper calls {launches} "
@@ -1233,28 +1231,35 @@ def selection_share(a, b):
                  .mean())
 
 
-def span_launches(events, span):
+def kernel_family(name):
+    """The FAMILIES entry of a profiler trace's kernel ``name``, or None:
+    csrc/raster_blocks.cu's images kernel is raster_images', its sums
+    kernel raster_blocks'."""
+    if "raster_blocks_images" in name:
+        return "raster_images"
+    return next((f for f in FAMILIES if f in name), None)
+
+
+def span_launches(events, span, count=1):
     """Per kernel family, the device kernels of a profiler trace launched
-    inside ``span`` (by the correlation id of their host launch; a graph
-    replay's kernels carry its one launch call's): raster_blocks, and
-    raster_sums, whose kernels raster_sums2 shares."""
+    inside its ``count`` spans ``span`` (by the correlation id of their
+    host launch; a graph replay's kernels carry its one launch call's)."""
     spans = [e for e in events if e.get("ph") == "X"
              and e.get("cat") == "user_annotation" and e.get("name") == span]
-    if len(spans) != 1:
+    if len(spans) != count:
         fail(f"the profiler trace holds {len(spans)} {span} spans")
-    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
     launch = {e["args"]["correlation"]: e["ts"] for e in events
               if e.get("cat") == "cuda_runtime"
               and "correlation" in e.get("args", {})}
     out = dict.fromkeys(FAMILIES, 0)
     for e in events:
-        if e.get("cat") != "kernel" or e.get("ph") != "X" or not (
-                t0 <= launch.get(e.get("args", {}).get("correlation"), -1)
-                <= t1):
+        t = launch.get(e.get("args", {}).get("correlation"), -1)
+        if e.get("cat") != "kernel" or e.get("ph") != "X" or not any(
+                sp["ts"] <= t <= sp["ts"] + sp["dur"] for sp in spans):
             continue
-        for family in out:
-            if family in e["name"]:
-                out[family] += 1
+        family = kernel_family(e["name"])
+        if family is not None:
+            out[family] += 1
     return out
 
 
@@ -1268,13 +1273,21 @@ def graph_launches(events, span):
                and sp["ts"] <= e["ts"] <= sp["ts"] + sp["dur"])
 
 
-def captured_launches(entry):
-    """A captured graph's launches per kernel family (span_launches'), as
-    its capture recorded them."""
-    n = dict(zip(KERNELS + ("raster_images",), entry.launches))
-    return {"raster_blocks": n["raster_blocks"] + n["raster_images"],
+def captured_launches(*graphs):
+    """The launches that the captures of ``graphs`` recorded, per kernel
+    family (span_launches')."""
+    n = sum((g.launches for g in graphs), collections.Counter())
+    return {"raster_blocks": n["raster_blocks"],
+            "raster_images": n["raster_images"],
             "raster_sums": n["raster_sums"] + n["raster_sums2"],
             "hand_search": n["hand_search"]}
+
+
+def cem_graphs(sis, cloud):
+    """A CEM request's two graphs on ``cloud``, R and S."""
+    key = sis.graph_key(cloud)
+    return [sis.graphs[(name,) + key] for name in ("cem_rounds",
+                                                    "cem_scoring")]
 
 
 def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
@@ -1305,8 +1318,8 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
     loop.detect(det.preprocess_cloud(p, view_points=vp, cam_source=cs),
                 generator=seeded(torch, 100), verbose=False)
     print(f"{label} warm-up request (loop): {time.perf_counter() - t0:.3f} s")
-    reset_counts(img)
-    by_route = {"fused": counts(img), "loop": counts(img)}
+    reset_counts()
+    by_route = {"fused": counts(), "loop": counts()}
     traces = tempfile.TemporaryDirectory()
     runs = runs or ([(r, cem.SUM_OF_GAUSSIANS) for r in range(REQUESTS)]
                     + [(0, cem.MAX_OF_GAUSSIANS)])
@@ -1322,12 +1335,14 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
         fused.detect(cloud, generator=seeded(torch, r), verbose=False)
         t_first = time.perf_counter() - t0
         if len(fused.graphs) > n_graphs:
-            e = list(fused.graphs.values())[-1]
+            new = list(fused.graphs.values())[n_graphs:]
             first = (f"first fused request {t_first * 1e3:.2f} ms, of it "
-                     f"the eager warm-up and the capture "
-                     f"{e.capture_s * 1e3:.2f} ms, the capture grew the "
-                     f"shared pool by {e.pool_bytes} bytes to "
-                     f"{fused.pool_bytes} over {len(fused.graphs)} keys")
+                     f"the eager warm-ups and the captures of R and S "
+                     f"{sum(e.capture_s for e in new) * 1e3:.2f} ms, the "
+                     f"captures grew the shared pool by "
+                     f"{sum(e.pool_bytes for e in new)} bytes to "
+                     f"{fused.pool_bytes} over {len(fused.graphs) // 2} "
+                     f"keys")
         else:
             first = (f"first fused request {t_first * 1e3:.2f} ms, key "
                      f"seen: nothing captured")
@@ -1336,27 +1351,26 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
         res, scored = {}, {}
         for route in ("fused", "loop", "loop", "fused"):
             sis = fused if route == "fused" else loop
-            before = counts(img)
+            before = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = sis.detect(cloud, generator=seeded(torch, r),
                              verbose=False)
             ms[route].append(round((time.perf_counter() - t0) * 1e3, 2))
-            delta = {k: v - before[k] for k, v in counts(img).items()}
+            delta = {k: v - before[k] for k, v in counts().items()}
             if route == "loop":
                 for k, v in delta.items():
                     by_route["loop"][k] += v
             res.setdefault(route, []).append(
                 (list(sis.last_round_counts), sis.last_num_grasps,
-                 out.to_host(), delta["raster_blocks"]))
+                 out.to_host(), delta["raster_images"]))
             valid = sis.last_scored.valid.cpu().numpy()
             scored.setdefault(route, []).append(valid)
             if [int(valid[a:a + n].sum()) for a, n in
                     sis.last_round_slots] != sis.last_round_counts:
                 fail(f"{label} request {r} ({name}): the {route} route's "
                      f"scored batch does not hold its round counts")
-        entry = fused.graphs[fused.graph_key(cloud)]
-        want = captured_launches(entry)
+        want = captured_launches(*cem_graphs(fused, cloud))
         d = os.path.join(traces.name, f"cem_{r}_{method}")
         events = traced(profiling, lambda: fused.detect(
             cloud, generator=seeded(torch, r), verbose=False), d)
@@ -1376,10 +1390,10 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
               f"{[x[1] for x in res['loop']]}); selection shared with the "
               f"loop's by position {[f'{s:.1%}' for s in shares]}; ms in "
               f"turns: fused {ms['fused']}, loop {ms['loop']}; {first}; "
-              f"raster_blocks launches per fused request: wrapper calls "
+              f"raster_images launches per fused request: wrapper calls "
               f"{[f[3] for f in res['fused']]}, run by a traced replay "
-              f"{ran['raster_blocks']} from {graphs} graph launches (its "
-              f"captures recorded {want['raster_blocks']}; loop "
+              f"{ran['raster_images']} from {graphs} graph launches (its "
+              f"captures recorded {want['raster_images']}; loop "
               f"{launch_l}); image slots {fused.last_counts['image_slots']} "
               f"for {fused.last_counts['live_hands']} valid hands; top scores "
               f"{np.round(scores[:5], 3).tolist()}")
@@ -1394,7 +1408,7 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
             if launch_f != 0:
                 fail(f"{label} request {r} ({name}): a fused request of a "
                      f"seen key called a kernel wrapper: it ran eagerly")
-        if ran != want or ran["raster_blocks"] < 1 or graphs != 2:
+        if ran != want or ran["raster_images"] < 1 or graphs != 2:
             fail(f"{label} request {r} ({name}): a traced replay ran {ran} "
                  f"from {graphs} graph launches, its captures recorded "
                  f"{want} in 2 graphs")
@@ -1411,7 +1425,8 @@ def cem_path(torch, img, profiling, syn, det, cem, CEMConfig, runs=None,
     print(f"launches on the {label} path: fused, run by {len(runs)} traced "
           f"replays {by_route['fused']}; loop {by_route['loop']} "
           f"({2 * len(runs)} requests); {len(fused.graphs)} graphs "
-          f"captured, their shared pool {fused.pool_bytes} bytes")
+          f"captured ({len(fused.graphs) // 2} keys), their shared pool "
+          f"{fused.pool_bytes} bytes")
     traces.cleanup()
     return by_route
 
@@ -1429,10 +1444,10 @@ def staged_path(torch, img, syn, det):
                staged=True)                           # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(img)
+    reset_counts()
     out = det.detect(cloud, generator=seeded(torch, 0), verbose=True,
                      staged=True)
-    launches = counts(img)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = det.last_counts["candidates"]
     a, b = out.to_host(), ref.to_host()
@@ -1448,8 +1463,8 @@ def staged_path(torch, img, syn, det):
         fail(f"staged route found {n} candidates, detect {n_ref}")
     if shared < 0.9:
         fail(f"staged route shares {shared:.1%} of its selection with detect")
-    if launches["raster_blocks"] < 1:
-        fail("the staged route never launched raster_blocks")
+    if launches["raster_images"] < 1:
+        fail("the staged route never launched raster_images")
     return launches
 
 
@@ -1470,7 +1485,7 @@ def clis_3ch(img, cem_app, detect_grasps, gen_app, cfg, path, tmp):
                              [cfg, path, "--staged"]),
                             ("generate_candidates", gen_app,
                              [cfg, path, out_csv])):
-        reset_counts(img)
+        reset_counts()
         trace_dir = os.path.join(tmp, "cli_cem")
         if name == "cem_detect_grasps":
             os.environ["GPD_TPU_PROFILE"] = trace_dir
@@ -1479,14 +1494,16 @@ def clis_3ch(img, cem_app, detect_grasps, gen_app, cfg, path, tmp):
             rc = app.main(argv)
         finally:
             os.environ.pop("GPD_TPU_PROFILE", None)
-        per_cli[name] = counts(img)
+        per_cli[name] = counts()
         how = ""
         if name == "cem_detect_grasps" and rc == 0:
             (trace,) = os.listdir(trace_dir)
             with open(os.path.join(trace_dir, trace)) as f:
                 events = json.load(f)["traceEvents"]
-            warm = span_launches(events, "cem_capture")["raster_sums"]
-            ran = span_launches(events, "cem_program")["raster_sums"]
+            # R's and S's captures, each inside cem_program.
+            warm = span_launches(events, "cem_capture", 2)["raster_sums"]
+            ran = (span_launches(events, "cem_program")["raster_sums"]
+                   - warm)
             calls = (per_cli[name]["raster_sums"]
                      + per_cli[name]["raster_sums2"])
             how = (f" (wrapper calls of the eager warm-up and the capture; "
@@ -1790,10 +1807,7 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
                        "15-channel detect request, graph route (replays)",
                        10)
     ran = span_launches(events, "detect_core")
-    want = dict.fromkeys(FAMILIES, 0)
-    for k in det.last_graphs:
-        for family, n in captured_launches(det.graphs[k]).items():
-            want[family] += n
+    want = captured_launches(*(det.graphs[k] for k in det.last_graphs))
     if ran != want or len(det.graphs) != n_graphs:
         fail(f"the traced detect replay ran {ran}, its captures recorded "
              f"{want}; graphs {n_graphs} -> {len(det.graphs)}")
@@ -1815,8 +1829,8 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
           f"over the median untraced request (detect total, 3 requests "
           f"each) {graph['kernel_ms'] / plain['graph']:.1%} of "
           f"{plain['graph']:.2f} ms vs {eager['kernel_ms'] / plain['eager']:.1%}"
-          f" of {plain['eager']:.2f} ms; raster_blocks kernels of the replay "
-          f"{ran['raster_blocks']} (captured {want['raster_blocks']})")
+          f" of {plain['eager']:.2f} ms; raster_images kernels of the replay "
+          f"{ran['raster_images']} (captured {want['raster_images']})")
     sis = cem.SequentialImportanceSampling(det, CEMConfig())
     sis._force_loop = True
     events = traced(profiling, lambda: sis.detect(
@@ -1833,8 +1847,8 @@ def profile_requests(torch, profiling, cem, CEMConfig, syn, det, tmp):
         os.path.join(tmp, "cem_fused"))
     read_trace(events, ("cem_program", "cem_rounds", "cem_scoring"),
                "15-channel CEM request, fused route (R and S replayed)", 5)
-    (entry,) = sis.graphs.values()
-    ran, want = span_launches(events, "cem_program"), captured_launches(entry)
+    ran = span_launches(events, "cem_program")
+    want = captured_launches(*sis.graphs.values())
     graphs = graph_launches(events, "cem_program")
     print(f"profiler, fused CEM replay: kernel launches run {ran}, its "
           f"captures recorded {want}; graph launches {graphs}")
@@ -1907,10 +1921,10 @@ def datagen_span(torch, img, datagen, syn, det, CloudArrays):
                 view_points=cam[None], capacity="serve")
             units.append((f"scene_{s:03d}", v, view, mesh))
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
-    reset_counts(img)
+    reset_counts()
     passes = datagen_turns(torch, img, datagen, gen, units,
                            "data generation, 15 channels, scene views",
-                           "raster_blocks")
+                           "raster_images")
     for u, (name, v, view, _) in enumerate(units):
         g = passes["graph"][0][u]
         print(f"generate_view {name} view {v}: {int(view.mask.sum())} points "
@@ -1962,7 +1976,7 @@ def datagen_pass(torch, img, datagen, gen, units, eager):
     det._force_eager = eager
     try:
         for name, v, view, mesh in units:
-            before = sum(counts(img).values())
+            before = sum(counts().values())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             images, labels = gen.generate_view(
@@ -1971,7 +1985,7 @@ def datagen_pass(torch, img, datagen, gen, units, eager):
             ms = (time.perf_counter() - t0) * 1e3
             out.append(dict(images=images, labels=labels, ms=ms,
                             counts=dict(gen.last_counts),
-                            calls=sum(counts(img).values()) - before,
+                            calls=sum(counts().values()) - before,
                             keys=list(det.last_graphs)))
     finally:
         det._force_eager = False
@@ -2059,21 +2073,21 @@ def datagen_turns(torch, img, datagen, gen, units, label, family):
 def datagen_path(torch, img, datagen, units, det):
     """Data generation at the default DataGenConfig on every unit
     (datagen_turns), its per-view lines (attempts, candidates, positives,
-    instances kept, ms by route in turns, the raster_blocks launches that
+    instances kept, ms by route in turns, the raster_images launches that
     the captures of the keys its replays ran recorded, and the eager
     route's wrapper calls), peak memory. Returns
     (per-unit (images, labels) of the first graph pass, the phase's
-    wrapper calls, per-view raster_blocks of the eager and the graph
+    wrapper calls, per-view raster_images of the eager and the graph
     route)."""
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(img)
+    reset_counts()
     passes = datagen_turns(torch, img, datagen, gen, units,
-                           "data generation, 15 channels", "raster_blocks")
-    launches = counts(img)
+                           "data generation, 15 channels", "raster_images")
+    launches = counts()
     graph, eager = passes["graph"][0], passes["eager"][0]
     per_view = [e["calls"] for e in eager]
-    per_view_graph = [replayed_launches(det, g["keys"], "raster_blocks")
+    per_view_graph = [replayed_launches(det, g["keys"], "raster_images")
                       for g in graph]
     for u, unit in enumerate(units):
         c, n = graph[u]["counts"], len(graph[u]["labels"])
@@ -2084,7 +2098,7 @@ def datagen_path(torch, img, datagen, units, det):
               f"positive), ms in turns graph "
               f"{[round(r[u]['ms'], 2) for r in passes['graph']]}, eager "
               f"{[round(r[u]['ms'], 2) for r in passes['eager']]}; "
-              f"raster_blocks recorded by the captures of the keys its "
+              f"raster_images recorded by the captures of the keys its "
               f"graph replays ran {per_view_graph[u]} (not traced), eager "
               f"wrapper calls {per_view[u]}")
         if graph[u]["images"].shape != (n, 60, 60, 15):
@@ -2108,7 +2122,7 @@ def datagen_3ch(torch, img, datagen, GraspDetector, DetectorConfig,
     det3 = GraspDetector(DetectorConfig(
         image_geometry=ImageGeometry(num_channels=3)), device="cuda")
     gen = datagen.DataGenerator(det3, datagen.DataGenConfig())
-    reset_counts(img)
+    reset_counts()
     passes = datagen_turns(torch, img, datagen, gen, [unit],
                            f"data generation, 3 channels ({unit[0]} view "
                            f"{unit[1]})", "raster_sums")
@@ -2121,7 +2135,7 @@ def datagen_3ch(torch, img, datagen, GraspDetector, DetectorConfig,
           f"{passes['eager'][0][0]['calls']}")
     if g["images"].shape[1:] != (60, 60, 3):
         fail(f"3-channel generate_view gave images {g['images'].shape}")
-    return counts(img), replayed, det3
+    return counts(), replayed, det3
 
 
 def relabel_check_eager(torch, detector, cand, datagen, det, unit):
@@ -2188,7 +2202,7 @@ def datagen_breakdown_eager(torch, detector, cand, datagen, det, unit):
 
 
 def profile_offline(torch, profiling, datagen, det, unit, tmp,
-                    family="raster_blocks", label="15 channels", gen=None,
+                    family="raster_images", label="15 channels", gen=None,
                     seed=DATAGEN_SEED):
     """One generate_view of seen keys by each route under
     profiling.maybe_trace, in a span read by read_trace: the graph route
@@ -2444,7 +2458,7 @@ def turns(torch, img, det, requests, order):
     res = {route: [] for route in requests}
     for route in order:
         det._force_eager = route == "eager"
-        before = counts(img)
+        before = counts()
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2453,7 +2467,7 @@ def turns(torch, img, det, requests, order):
         finally:
             det._force_eager = False
         res[route].append((round((time.perf_counter() - t0) * 1e3, 2), out,
-                           {k: v - before[k] for k, v in counts(img).items()}))
+                           {k: v - before[k] for k, v in counts().items()}))
     return res
 
 
@@ -2467,15 +2481,12 @@ def traced_span(torch, profiling, fn, d, label, det, eager=False):
         with profiling.span("traced_call"):
             fn()
             torch.cuda.synchronize()
-    det.last_graphs, det._force_eager = [], eager
+    det.programs.last_graphs, det._force_eager = [], eager
     try:
         events = traced(profiling, run, d)
     finally:
         det._force_eager = False
-    want = dict.fromkeys(FAMILIES, 0)
-    for k in det.last_graphs:
-        for family, n in captured_launches(det.graphs[k]).items():
-            want[family] += n
+    want = captured_launches(*(det.graphs[k] for k in det.last_graphs))
     return (read_trace(events, ("traced_call",), label, 0),
             span_launches(events, "traced_call"), want)
 
@@ -2502,7 +2513,7 @@ def sharded_by_route(torch, img, profiling, det, detector, sharded, mesh,
     (same count, 1e-5), every graph selection shares >= 90% of the eager
     route's by position with finite scores, the traced detect_sharded_raw
     replay takes fewer than 100 host launch calls, and each traced replay
-    runs the raster_blocks kernels its keys' captures recorded. Returns
+    runs the raster_images kernels its keys' captures recorded. Returns
     each route's launches (the graph route's from its trace)."""
     cfg = det.effective_config(cloud)
     spos, smask = det.sample_cloud(cloud, seeded(torch, 0))
@@ -2548,7 +2559,7 @@ def sharded_by_route(torch, img, profiling, det, detector, sharded, mesh,
         if any(sum(c.values()) for _, _, c in res["graph"]):
             fail(f"{name}: a graph request called a kernel wrapper: it ran "
                  f"eagerly")
-        if ran != want or ran["raster_blocks"] < 1:
+        if ran != want or ran["raster_images"] < 1:
             fail(f"{name}: a traced replay ran {ran}, its captures "
                  f"recorded {want}")
         outs = {r: [o for _, o, _ in res[r]] for r in res}
@@ -2590,11 +2601,11 @@ def sharded_by_route(torch, img, profiling, det, detector, sharded, mesh,
               f"{graph['busy']:.1%} vs {eager['busy']:.1%}, host launch "
               f"calls {graph['calls']} vs {eager['calls']}, kernel time "
               f"{graph['kernel_ms']:.2f} vs {eager['kernel_ms']:.2f} ms; "
-              f"raster_blocks run by the traced replay "
-              f"{ran['raster_blocks']} (its keys' captures recorded "
-              f"{want['raster_blocks']}; the traced eager request "
-              f"{ran_e['raster_blocks']}, its wrapper calls a request "
-              f"{[c['raster_blocks'] for _, _, c in res['eager']]})")
+              f"raster_images run by the traced replay "
+              f"{ran['raster_images']} (its keys' captures recorded "
+              f"{want['raster_images']}; the traced eager request "
+              f"{ran_e['raster_images']}, its wrapper calls a request "
+              f"{[c['raster_images'] for _, _, c in res['eager']]})")
         by_path[f"{name}, world 1 (NCCL), graph route (a traced replay)"] = \
             all_kernels(ran)
         by_path[f"{name}, world 1 (NCCL), eager route (wrapper calls, one "
@@ -2613,7 +2624,7 @@ def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
     unless all three find the same round counts, the two mesh loops the
     same final count, a grasp with finite scores each, no later request
     captures or (graph, fused) calls a kernel wrapper, and the traced graph
-    loop runs the raster_blocks kernels its keys' captures recorded.
+    loop runs the raster_images kernels its keys' captures recorded.
     Returns each route's launches (graph loop and fused from traces)."""
     sis = {"graph": cem.SequentialImportanceSampling(det, CEMConfig(),
                                                      mesh=mesh),
@@ -2641,8 +2652,7 @@ def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
         traces[route] = traced_span(
             torch, profiling, requests[route], f"{d}/cem_{route}",
             f"CEM {route} request", det, route == "eager")
-    fused_key = sis["fused"].graph_key(cloud)
-    want_fused = captured_launches(sis["fused"].graphs[fused_key])
+    want_fused = captured_launches(*cem_graphs(sis["fused"], cloud))
     rounds = {r: [o[1] for _, o, _ in res[r]] for r in res}
     finals = {r: [o[2] for _, o, _ in res[r]] for r in res}
     if len(det.graphs) != n_graphs or len(sis["fused"].graphs) != n_fused:
@@ -2660,7 +2670,7 @@ def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
                 fail(f"CEM by route: the {r} route found no grasp or a "
                      f"non-finite score")
     _, ran_g, want_g = traces["graph"]
-    if ran_g != want_g or ran_g["raster_blocks"] < 1:
+    if ran_g != want_g or ran_g["raster_images"] < 1:
         fail(f"CEM mesh loop: a traced graph request ran {ran_g}, its keys' "
              f"captures recorded {want_g}")
     if traces["fused"][1] != want_fused:
@@ -2684,11 +2694,11 @@ def cem_mesh_by_route(torch, img, profiling, det, cem, CEMConfig, mesh,
           f"{traces['fused'][0]['calls']}; kernel time "
           f"{traces['graph'][0]['kernel_ms']:.2f}, "
           f"{traces['eager'][0]['kernel_ms']:.2f}, "
-          f"{traces['fused'][0]['kernel_ms']:.2f} ms; raster_blocks run "
-          f"by the traced graph loop {ran_g['raster_blocks']} (its keys' "
-          f"captures recorded {want_g['raster_blocks']}), the traced eager "
-          f"loop {traces['eager'][1]['raster_blocks']}, the fused replay "
-          f"{traces['fused'][1]['raster_blocks']}")
+          f"{traces['fused'][0]['kernel_ms']:.2f} ms; raster_images run "
+          f"by the traced graph loop {ran_g['raster_images']} (its keys' "
+          f"captures recorded {want_g['raster_images']}), the traced eager "
+          f"loop {traces['eager'][1]['raster_images']}, the fused replay "
+          f"{traces['fused'][1]['raster_images']}")
     return {"CEM mesh=, world 1 (NCCL), graph loop (a traced request)":
                 all_kernels(ran_g),
             "CEM mesh=, world 1 (NCCL), eager loop (wrapper calls, one "
@@ -2846,7 +2856,7 @@ def parallel_path(torch, img, profiling, syn, det, detector, cem, CEMConfig,
             def on_step(step, loss, acc):
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
-            reset_counts(img)
+            reset_counts()
             try:
                 params = train.fit(data, None, 15, epochs=1, batch_size=64,
                                    seed=0, device="cuda", on_step=on_step,
@@ -2859,7 +2869,7 @@ def parallel_path(torch, img, profiling, syn, det, detector, cem, CEMConfig,
                 np.median([a.elapsed_time(b)
                            for a, b in zip(events, events[1:])])))
             if dp:
-                by_path["fit data_parallel, world 1 (NCCL)"] = counts(img)
+                by_path["fit data_parallel, world 1 (NCCL)"] = counts()
         g_dp = max(gap(d, fits[True, False][0]) for d in fits[True, True])
         print(f"parallel: 40 training steps of fit with "
               f"DistributedDataParallel (through StepGraphs: "
@@ -2957,10 +2967,10 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
               "replay calls none)")
     ms = {"C ABI": [], "capi": [], "api": []}
     for name in ("C ABI", "capi", "api", "api", "capi", "C ABI"):
-        reset_counts(img)
+        reset_counts()
         if name == "C ABI":
             rows, t = host_ms(torch, c_detect)
-            by_path[c_path] = counts(img)
+            by_path[c_path] = counts()
         elif name == "capi":
             expect, t = host_ms(torch, lambda: capi.detect_in_cloud(
                 hp, p, vp, cs, seed=0))
@@ -2976,8 +2986,8 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
           f"capi.detect_in_cloud {len(expect)}; max geometry gap {geo}, "
           f"score gap {sc}, identical {ok and np.array_equal(rows, expect)}; "
           f"ms in turns: C ABI {ms['C ABI']}, capi {ms['capi']}, api "
-          f"(serving buckets) {ms['api']}; raster_blocks launches "
-          f"{by_path[c_path]['raster_blocks']} (wrapper calls: a graph "
+          f"(serving buckets) {ms['api']}; raster_images launches "
+          f"{by_path[c_path]['raster_images']} (wrapper calls: a graph "
           f"replay calls none)")
     if not ok or geo > 1e-5 or sc > 1e-3 or not np.array_equal(
             rows[:, 17:], expect[:, 17:]):
@@ -2985,13 +2995,13 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
 
     out, imgs = ctypes.POINTER(Grasp)(), ctypes.POINTER(ctypes.c_uint8)()
     n, size, chans = ctypes.c_int(-1), ctypes.c_int(-1), ctypes.c_int(-1)
-    reset_counts(img)
+    reset_counts()
     if lib.gpd_calc_grasp_descriptors(
             h, p.ctypes.data_as(fp), len(p), vp.ctypes.data_as(fp), len(vp),
             ctypes.byref(out), ctypes.byref(imgs), ctypes.byref(n),
             ctypes.byref(size), ctypes.byref(chans)) != 0:
         fail(f"gpd_calc_grasp_descriptors: {lib.gpd_last_error().decode()}")
-    by_path["C ABI gpd_calc_grasp_descriptors"] = counts(img)
+    by_path["C ABI gpd_calc_grasp_descriptors"] = counts()
     shape = (n.value, size.value, size.value, chans.value)
     images = np.ctypeslib.as_array(imgs, shape=shape).copy() if n.value else \
         np.zeros(shape, np.uint8)
@@ -3001,8 +3011,8 @@ def c_abi_path(torch, img, syn, api, capi, tmp, why_not_built):
     capi.destroy_detector(hp)
     print(f"C ABI: gpd_calc_grasp_descriptors {n.value} candidates, images "
           f"{images.shape} uint8, {int(images.any(axis=(1, 2, 3)).sum())} "
-          f"not blank; raster_blocks launches "
-          f"{by_path['C ABI gpd_calc_grasp_descriptors']['raster_blocks']}")
+          f"not blank; raster_images launches "
+          f"{by_path['C ABI gpd_calc_grasp_descriptors']['raster_images']}")
     if n.value < 1 or shape[1:] != (60, 60, 15):
         fail(f"gpd_calc_grasp_descriptors gave images {shape}")
     return by_path
@@ -3030,16 +3040,16 @@ def grasp_image_path(torch, img, syn, pcd, test_grasp_image, viz,
             break
     else:
         fail("test_grasp_image found no object point with a valid hand")
-    reset_counts(img)
+    reset_counts()
     t0 = time.perf_counter()
     rc = test_grasp_image.main([path, str(idx),
                                 os.path.join(tmp, "grasp_image.png")])
     t = time.perf_counter() - t0
-    launches = counts(img)
+    launches = counts()
     print(f"test_grasp_image: exit {rc} in {t:.3f} s at sample {idx}; "
-          f"raster_blocks launches {launches['raster_blocks']}")
-    if rc != 0 or launches["raster_blocks"] < 1:
-        fail("test_grasp_image failed or never launched raster_blocks")
+          f"raster_images launches {launches['raster_images']}")
+    if rc != 0 or launches["raster_images"] < 1:
+        fail("test_grasp_image failed or never launched raster_images")
     hands = grasps.to_host_list()
     segs = np.stack([viz.hand_segments(g["position"], g["orientation"])
                      for g in hands])
@@ -3147,50 +3157,41 @@ def score_check(torch, lenet, cpu_net, card_net, images, k_cap):
         fail(f"the card's top-{k} shares {overlap:.1%} with the CPU's")
 
 
-def wrapper(img, name):
-    """The kernel wrapper ``name``: the raster kernels' in ``img``, the
-    hand search's in ops/candidates.py."""
-    if name == "hand_search":
-        from gpd_tpu_torch.ops import candidates
-        return candidates.hand_search
-    return getattr(img, name)
+def reset_counts():
+    from gpd_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()
 
 
-def reset_counts(img):
-    for name in KERNELS:
-        wrapper(img, name).launches = 0
-    img.raster_images.launches = 0
-
-
-def counts(img):
-    """Wrapper calls per name of KERNELS, raster_images' under
-    "raster_blocks" (FAMILIES)."""
-    n = {name: wrapper(img, name).launches for name in KERNELS}
-    n["raster_blocks"] += img.raster_images.launches
-    return n
+def counts():
+    """Kernel launches per wrapper of KERNELS since the last
+    reset_counts (the launch registry's)."""
+    from gpd_tpu_torch.ops import _build
+    return {name: _build.LAUNCHES[name] for name in KERNELS}
 
 
 def stage_breakdown(torch, det, prepare, kernel, label):
-    """One request once more, with detect waiting for the device after
-    every stage (sync_stages): each stage's host-clock time. ``prepare``
-    makes the cloud (timed as preprocess)."""
+    """One request once more by the staged route at detect's image chunk
+    (detect(staged=True, staged_cap=image_cap)), which waits for the
+    device after every stage: each stage's host-clock time, and the image
+    chunks as launches of the wrapper ``kernel``. ``prepare`` makes the
+    cloud (timed as preprocess)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cloud = prepare()
     torch.cuda.synchronize()
     times = {"preprocess": time.perf_counter() - t0}
-    before = kernel.launches
-    det.detect(cloud, verbose=False, sync_stages=True,
+    before = counts()[kernel]
+    det.detect(cloud, verbose=False, staged=True,
+               staged_cap=det.image_cap(det.cfg.num_samples),
                generator=torch.Generator(device="cuda").manual_seed(0))
     rt = det.last_runtimes
-    for stage in ("sample", "candidates", "descriptors", "images",
-                  "classify", "select"):
+    for stage in ("candidates", "images", "classify"):
         times[stage] = rt[stage]
     print(f"stage breakdown ({label}, ms): " + ", ".join(
         f"{k} {v * 1e3:.2f}" for k, v in times.items()) +
-        f"; sum {sum(times.values()) * 1e3:.2f}; detect total "
+        f"; sum {sum(times.values()) * 1e3:.2f}; staged total "
         f"{rt['total'] * 1e3:.2f}; "
-        f"{kernel.launches - before} image chunks")
+        f"{counts()[kernel] - before} image chunks")
 
 
 def reference_check(torch, syn, lenet, GraspDetector, detector, cfg, kernel):
@@ -3213,13 +3214,13 @@ def reference_check(torch, syn, lenet, GraspDetector, detector, cfg, kernel):
     g = detector._compact_hands(grasps, cpu.image_cap(spos.shape[0]))
     ref = detector._images_for(cloud, g, *inputs, ecfg).numpy()
 
-    before = kernel.launches
+    before = counts()[kernel]
     out = detector._images_for(moved(torch, cloud, "cuda"),
                                moved(torch, g, "cuda"),
                                *[moved(torch, t, "cuda") for t in inputs],
                                ecfg)
     out = out.cpu().numpy()
-    if kernel.launches == before:
+    if counts()[kernel] == before:
         fail("reference check did not reach the kernel")
     if out.shape != ref.shape:
         fail(f"image shapes differ: {out.shape} vs {ref.shape}")
@@ -3264,7 +3265,7 @@ def classifier_pass(torch, img, gen_dataset, det, gen, depth, kept=None):
     wrapper calls it made. Appends each item to ``kept``."""
     objects, views, scenes = depth
     train, test = MemoryWriter(), MemoryWriter()
-    n0, calls0 = len(det.graphs), sum(counts(img).values())
+    n0, calls0 = len(det.graphs), sum(counts().values())
 
     def items():
         for item in gen_dataset.build_items(det, objects, views,
@@ -3281,7 +3282,7 @@ def classifier_pass(torch, img, gen_dataset, det, gen, depth, kept=None):
     return dict(train=train, test=test, ms=(time.perf_counter() - t0) * 1e3,
                 views=len(train.done) + len(test.done),
                 new=list(det.graphs)[n0:],
-                calls=sum(counts(img).values()) - calls0)
+                calls=sum(counts().values()) - calls0)
 
 
 def heldout_views(syn, CloudArrays, det):
@@ -3433,7 +3434,7 @@ def classifier_path(torch, img, profiling, syn, datagen, detector, cand,
     det = gen_dataset.make_detector("cuda")
     gen = gen_dataset.make_generator(det, depth[1])
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(img)
+    reset_counts()
     kept = []
     first = classifier_pass(torch, img, gen_dataset, det, gen, depth, kept)
     second = classifier_pass(torch, img, gen_dataset, det, gen, depth)
@@ -3550,11 +3551,11 @@ def classifier_path(torch, img, profiling, syn, datagen, detector, cand,
     traced_view = profile_offline(torch, profiling, datagen, det, kept[0],
                                   tmp, label="15 channels, gen_dataset",
                                   gen=gen, seed=0)
-    launches = counts(img)
+    launches = counts()
     print(f"classifier pipeline: kernel wrapper calls {launches} (captures' "
           f"warm-ups and captures, the CPU route none); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if not (launches["raster_blocks"] and launches["raster_sums"]):
+    if not (launches["raster_images"] and launches["raster_sums"]):
         fail(f"the classifier pipeline launched {launches}")
     classifier_hdf5(gen_dataset, train_classifier, lenet, tmp)
     summary = dict(views=second["views"], ms_per_view=ms_view,
@@ -3692,11 +3693,11 @@ def card_vs_cpu(torch, img, detector, det, cloud, label):
                                          smask[:n].cpu(), None, cfg)
     g = detector._compact_hands(cpu, det.image_cap(n))
     ref = detector._images_for(cloud_cpu, g, *inputs, cfg).numpy()
-    before = sum(counts(img).values())
+    before = sum(counts().values())
     out = detector._images_for(cloud, moved(torch, g, "cuda"),
                                *[moved(torch, t, "cuda") for t in inputs],
                                cfg).cpu().numpy()
-    if sum(counts(img).values()) == before:
+    if sum(counts().values()) == before:
         fail(f"{label}: the card's images did not reach a kernel")
     diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     frac = float((diff > 1).mean())
@@ -3723,7 +3724,7 @@ def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
     and request_turns; card_vs_cpu on scene 0; CEM's fused route against
     its loop on scene 0 (cem_path); generate_view by route on one view of
     each zoo object (datagen_turns). Returns {path: kernel wrapper calls,
-    or the kernels traced replays ran} and the raster_blocks launches a
+    or the kernels traced replays ran} and the raster_images launches a
     request, a CEM request and a view ran."""
     det = GraspDetector(DetectorConfig(
         image_geometry=ImageGeometry(num_channels=12)), device="cuda")
@@ -3736,7 +3737,7 @@ def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
                generator=seeded(torch, 100), verbose=False)
     print(f"12-channel warm-up request (preprocess_cloud + detect): "
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
-    reset_counts(img)
+    reset_counts()
     ran, clouds = 0, []
     for r in range(REQUESTS):
         p, cs, vp = scene(syn, r)
@@ -3747,33 +3748,33 @@ def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
         ran += graph_turns(
             torch, img, profiling, det, lambda: det.detect(
                 clouds[-1], generator=seeded(torch, r), verbose=False),
-            f"12-channel request {r}", "raster_blocks",
-            os.path.join(tmp, f"detect12_{r}"))["raster_blocks"]
+            f"12-channel request {r}", "raster_images",
+            os.path.join(tmp, f"detect12_{r}"))["raster_images"]
         request_turns(torch, det, lambda: det.detect(
             prep(det), generator=seeded(torch, r), verbose=False),
             f"12-channel request {r}")
-    launches = counts(img)
+    launches = counts()
     print(f"launches on the 12-channel path: wrapper calls {launches} "
           f"(warm-ups and captures, and {5 * REQUESTS} eager requests); "
           f"{len(det.graphs)} graphs captured, pool "
           f"{sum(e.pool_bytes for e in det.graphs.values())} bytes; traced "
-          f"replays ran {ran / REQUESTS:.2f} raster_blocks per request")
+          f"replays ran {ran / REQUESTS:.2f} raster_images per request")
     card_vs_cpu(torch, img, detector, det, clouds[0], "12-channel request 0")
     cem_launches = cem_path(torch, img, profiling, syn, det, cem, CEMConfig,
                             [(0, cem.SUM_OF_GAUSSIANS)], "12-channel CEM")
     units = datagen_units(torch, syn, det, CloudArrays)[::DATAGEN_VIEWS]
     gen = datagen.DataGenerator(det, datagen.DataGenConfig())
-    reset_counts(img)
+    reset_counts()
     passes = datagen_turns(torch, img, datagen, gen, units,
-                           "data generation, 12 channels", "raster_blocks")
-    launches_gen = counts(img)
+                           "data generation, 12 channels", "raster_images")
+    launches_gen = counts()
     graph = passes["graph"][0]
-    per_view = [replayed_launches(det, g["keys"], "raster_blocks")
+    per_view = [replayed_launches(det, g["keys"], "raster_images")
                 for g in graph]
     shapes = {g["images"].shape[1:] for g in graph}
     print(f"data generation, 12 channels: {len(units)} views, "
           f"{sum(len(g['labels']) for g in graph)} instances a pass, images "
-          f"{shapes}; raster_blocks recorded by the captures of the keys "
+          f"{shapes}; raster_images recorded by the captures of the keys "
           f"each graph view replayed {per_view}, eager wrapper calls "
           f"{[e['calls'] for e in passes['eager'][0]]}")
     if shapes != {(60, 60, 12)}:
@@ -3785,7 +3786,7 @@ def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
         f"detect, 12 channels (wrapper calls: warm-ups, captures, "
         f"{5 * REQUESTS} eager requests)": launches,
         f"detect, 12 channels, graph route ({REQUESTS} traced replays, from "
-        f"the trace)": {"raster_blocks": ran, "raster_sums": 0,
+        f"the trace)": {"raster_images": ran, "raster_sums": 0,
                         "raster_sums2": 0},
         "CEM fused, 12 channels (1 traced replay, from the trace)":
             cem_launches["fused"],
@@ -3794,7 +3795,7 @@ def path_12ch(torch, img, profiling, syn, datagen, cem, detector,
         f"the warm pass's warm-ups and captures, two eager passes)":
             launches_gen}
     return by_path, per_view, dict(
-        request=ran / REQUESTS, cem=cem_launches["fused"]["raster_blocks"],
+        request=ran / REQUESTS, cem=cem_launches["fused"]["raster_images"],
         view=float(np.mean(per_view)))
 
 
@@ -3814,7 +3815,7 @@ def path_1ch(torch, img, profiling, syn, pcd, detector, GraspDetector,
     det.detect_file(paths[0], verbose=False, generator=seeded(torch, 100))
     print(f"1-channel warm-up request (detect_file): "
           f"{graph_keys_line(det, 0, time.perf_counter() - t0)}")
-    reset_counts(img)
+    reset_counts()
     ran = 0
     for r, path in enumerate(paths[1:]):
         ran += graph_turns(
@@ -3823,7 +3824,7 @@ def path_1ch(torch, img, profiling, syn, pcd, detector, GraspDetector,
             f"1-channel request {r} (detect_file, file read and preprocess "
             f"included)", "raster_sums",
             os.path.join(tmp, f"detect_file1_{r}"))["raster_sums"]
-    launches = counts(img)
+    launches = counts()
     print(f"launches on the 1-channel path: wrapper calls {launches} "
           f"(warm-ups and captures, and {3 * REQUESTS} eager requests); "
           f"{len(det.graphs)} graphs captured, pool "
@@ -4030,7 +4031,7 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     p, cs, vp = scene(syn, 0)
     stage_breakdown(torch, det, lambda: det.preprocess_cloud(
-        p, view_points=vp, cam_source=cs), img.raster_images,
+        p, view_points=vp, cam_source=cs), "raster_images",
         "15 channels, request 0 scene")
     neighbor_routes(torch, det, det.preprocess_cloud(
         p, view_points=vp, cam_source=cs), "15 channels, request 0 scene")
@@ -4082,7 +4083,7 @@ def main():
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         stage_breakdown(torch, det3, lambda: det3.preprocess_cloud(
             pcd.load_cloud_file(paths[1]), view_points=cam,
-            capacity="serve"), img.raster_sums,
+            capacity="serve"), "raster_sums",
             "3 channels, request 0 scene, preprocess includes the file read")
         cfg_path = cli_3ch(detect_grasps, pcd, paths[1], cam, tmp)
         by_path["detect_file, 3 channels (wrapper calls: warm-ups, "
@@ -4108,10 +4109,10 @@ def main():
                      DetectorConfig, convert_weights, trained, tmp)
 
     reference_check(torch, syn, lenet, GraspDetector, detector,
-                    DetectorConfig(num_samples=32), img.raster_images)
+                    DetectorConfig(num_samples=32), "raster_images")
     reference_check(torch, syn, lenet, GraspDetector, detector,
                     DetectorConfig(num_samples=32, image_geometry=ImageGeometry(
-                        num_channels=3)), img.raster_sums)
+                        num_channels=3)), "raster_sums")
     net_swap_check(torch, lenet, syn, det, GraspDetector, DetectorConfig)
     with tempfile.TemporaryDirectory() as tmp:
         launches_q, traced_q, _ = classifier_path(
@@ -4126,20 +4127,25 @@ def main():
         GraspDetector, DetectorConfig, CEMConfig, ImageGeometry, CloudArrays)
     by_path.update(by1)
 
-    entries["raster_blocks"]["launches"] = launches15["raster_blocks"]
+    # Every path's 12/15-channel images take raster_images; raster_blocks
+    # runs in the kernel checks alone, and has no path.
+    on_paths = {"raster_images": images15,
+                **{k: entries[k] for k in ("raster_sums", "raster_sums2",
+                                           "hand_search")}}
+    images15["launches"] = launches15["raster_images"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
     entries["hand_search"]["launches"] = launches15["hand_search"]
-    for name, e in entries.items():
+    for name, e in on_paths.items():
         # A path that counted only the raster kernels is left out.
         e["launches_by_path"] = {path: launches[name]
                                  for path, launches in by_path.items()
                                  if name in launches}
-    free["launches"] = next(iter(by12.values()))["raster_blocks"]
-    free["launches_by_path"] = {path: launches["raster_blocks"]
-                                for path, launches in by12.items()}
-    free["launches_by_path"].update({
+    images12["launches"] = next(iter(by12.values()))["raster_images"]
+    images12["launches_by_path"] = {path: launches["raster_images"]
+                                    for path, launches in by12.items()}
+    images12["launches_by_path"].update({
         "generate_view, 12 channels, graph route, per view (recorded by the "
         "captures of the keys each view replayed; not traced)": per_view12,
         "per 12-channel request, CEM request and view, graph route":
@@ -4155,14 +4161,14 @@ def main():
           f"a data-generation view {per_request['view']:.2f}; raster_sums "
           f"launches a 1-channel detect_file "
           f"{per_request['detect_file_1ch']:.2f}")
-    entries["raster_blocks"]["launches_by_path"][
+    images15["launches_by_path"][
         "generate_view, 15 channels, eager route, per view (wrapper calls)"
     ] = per_view
-    entries["raster_blocks"]["launches_by_path"][
+    images15["launches_by_path"][
         "generate_view, 15 channels, graph route, per view (recorded by "
         "the captures of the keys each view replayed; not traced)"
     ] = per_view_graph
-    entries["raster_blocks"]["launches_by_path"][
+    images15["launches_by_path"][
         f"generate_view, 15 channels, graph route, {units[1][0]} view "
         f"{units[1][1]} (from its trace)"] = traced_view
     entries["raster_sums"]["launches_by_path"][
@@ -4172,15 +4178,9 @@ def main():
     entries["raster_sums"]["launches_by_path"][
         f"generate_view, 3 channels, graph route, {units[0][0]} view "
         f"{units[0][1]} (from its trace)"] = traced_view3
-    entries["raster_blocks"]["launches_by_path"][
+    images15["launches_by_path"][
         "classifier pipeline, one gen_dataset view, graph route (from its "
         "trace)"] = traced_q
-    # Every path's images take raster_images: the family's launches are
-    # its, and raster_blocks alone runs in the kernel checks only.
-    for sums, images in ((entries["raster_blocks"], images15),
-                         (free, images12)):
-        for k in ("launches", "launches_by_path"):
-            images[k] = sums.pop(k)
     keys = ("name", "shadows", "channels", "route", "source", "replaces",
             "launches", "max_abs_err", "unequal_share", "ms", "replaced_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_ratio",

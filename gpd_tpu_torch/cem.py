@@ -17,14 +17,14 @@ Two routes, as in gpd_tpu (cem.py:231-361), through one body,
   - Without a mesh the whole request is ONE program, the counterpart of
     gpd_tpu's fused ``_cem_fused`` (cem.py:132-195): round 0, the
     importance-sampling rounds, every round's scoring pass, the score
-    prune and the selection, with no read back to the host. On a card it
-    runs as two CUDA graphs replayed back to back, R (the rounds) and S
-    (the scoring, the prune and the selection, reading R's outputs in
-    place), captured once per static key and replayed
+    prune and the selection, with no read back to the host. It runs as two
+    programs back to back, R (the rounds) and S (the scoring, the prune and
+    the selection, reading R's outputs in place): on a card two CUDA
+    graphs, captured once per static key and replayed
     (``SequentialImportanceSampling.graphs``, every key in one memory
     pool; jax.jit compiles ``_cem_fused`` once per set of static
-    arguments); on the CPU the same program runs eagerly as one body. The
-    round counts and the final count are read once, after it.
+    arguments), on the CPU eagerly. The round counts and the final count
+    are read once, after it.
   - With ``mesh=`` (a ``parallel.sharded.Mesh``; every rank calls
     ``detect``), or with the test hook ``_force_loop``, gpd_tpu's Python
     round loop (cem.py:255-361), the same body. Without a mesh it reads
@@ -49,13 +49,12 @@ each scoring pass's shadow and RANSAC draws; on one generator state they
 find the same candidates and, up to the float atomics of the card's
 rasters, the same grasps. Under GPD_TPU_PROFILE a request is traced
 (``profiling.maybe_trace``), the whole ``detect`` call in the span
-``cem_detect``: the program in ``cem_program``, which on a card holds R's
-launch (``cem_rounds``) and S's launch and the final read
-(``cem_scoring``; a new key's warm-ups and captures come before it, in
-``cem_capture``), the loop in three (``cem_rounds``, ``cem_scoring``,
-``select_and_cluster``). A request leaves its counters in
-``last_counts`` and its scored batch, every round's scored slots before
-the prune, in ``last_scored``.
+``cem_detect``: the program in ``cem_program``, which holds R
+(``cem_rounds``) and S and the final read (``cem_scoring``; a new key's
+warm-up and capture of each, in ``cem_capture``), the loop in three
+(``cem_rounds``, ``cem_scoring``, ``select_and_cluster``). A request
+leaves its counters in ``last_counts`` and its scored batch, every
+round's scored slots before the prune, in ``last_scored``.
 """
 
 from __future__ import annotations
@@ -70,9 +69,9 @@ import torch
 from gpd_tpu_torch import profiling
 from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
-from gpd_tpu_torch.detector import (CapturedGraph, GraspDetector,
-                                    candidates_stage, clone_tree,
+from gpd_tpu_torch.detector import (GraspDetector, candidates_stage,
                                     score_candidates)
+from gpd_tpu_torch.graphs import Programs, clone_tree
 from gpd_tpu_torch.net.lenet import LeNet
 from gpd_tpu_torch.ops import draws
 from gpd_tpu_torch.ops import preprocess as pp
@@ -97,7 +96,7 @@ def _draw_round(generator: torch.Generator, centers: torch.Tensor,
     device, the cloud's capacity, the center buffer's size and the draw's
     static arguments; the centers and their mask are copied in, the draws
     come from ``generator``'s state through the graph's own generator
-    (``GraspDetector._run_drawing``), and the positions come back as a
+    (``graphs.Programs.run``), and the positions come back as a
     copy, which the rounds keep past the next replay."""
     def program(g, c, m, points, pmask):
         return draws.cem_round(g, c, m, points, pmask, sigma, workspace,
@@ -107,7 +106,7 @@ def _draw_round(generator: torch.Generator, centers: torch.Tensor,
         return program(generator, *inputs)
     key = ("cem_round", cloud.device, cloud.capacity, centers.shape[0],
            method, n_gauss, n_rand, sigma, workspace)
-    return owner._run_drawing(key, program, inputs, generator).clone()
+    return owner.programs.run(key, program, inputs, generator).clone()
 
 
 def _phase(name: str, on: bool):
@@ -238,31 +237,6 @@ def _read_counts(out: Grasps, counts: torch.Tensor) -> Tuple[List[int], int]:
     return counts, n_final
 
 
-@dataclasses.dataclass
-class FusedGraphs:
-    """A fused key's two CUDA graphs, replayed back to back with no host
-    read between them: ``rounds`` (R, ``_cem_rounds``: round 0's subsample
-    and candidates, each draw and candidate pass) and ``scoring`` (S,
-    ``_cem_scoring``: every scoring pass, the prune and the selection),
-    which reads R's outputs in place."""
-    rounds: CapturedGraph
-    scoring: CapturedGraph
-
-    @property
-    def launches(self) -> List[int]:
-        """Each kernel wrapper's launches that the two captures recorded."""
-        return [a + b for a, b in zip(self.rounds.launches,
-                                      self.scoring.launches)]
-
-    @property
-    def capture_s(self) -> float:
-        return self.rounds.capture_s + self.scoring.capture_s
-
-    @property
-    def pool_bytes(self) -> int:
-        return self.rounds.pool_bytes + self.scoring.pool_bytes
-
-
 class SequentialImportanceSampling:
     """CEM grasp detector (reference: include/gpd/
     sequential_importance_sampling.h) on the detector's device, sharded over
@@ -273,12 +247,10 @@ class SequentialImportanceSampling:
         self.detector = detector
         self.cem = cem
         self.mesh = mesh
-        # The fused program's captured CUDA graphs by static key (see
-        # ``graph_key``; the counterpart of jax.jit's cache of _cem_fused),
-        # a ``FusedGraphs`` each, all captured into one memory pool. A
-        # request of a seen key captures nothing.
-        self.graphs = {}
-        self.pool = None
+        # The fused route's two programs, R and S, as CUDA graphs by
+        # static key (``graph_key`` after the program's name), in one
+        # memory pool of their own.
+        self.programs = Programs(detector.device)
         # Stats of the last detect() call (the reference prints these,
         # sequential_importance_sampling.cpp:105-186).
         self.last_round_counts = []
@@ -343,65 +315,48 @@ class SequentialImportanceSampling:
                 id(self.detector.net), self.program_args(cloud))
 
     @property
+    def graphs(self) -> dict:
+        """The fused route's CUDA graphs, R's and S's of every key."""
+        return self.programs.graphs
+
+    @property
+    def pool(self):
+        """The memory pool of every graph in ``graphs``."""
+        return self.programs.pool
+
+    @property
     def pool_bytes(self) -> int:
         """What the captures of every key have reserved for their pool."""
         return sum(e.pool_bytes for e in self.graphs.values())
 
-    def _capture(self, cloud: CloudArrays, gen: torch.Generator
-                 ) -> FusedGraphs:
-        """A new key's two graphs, each after an eager warm-up on a side
-        stream (``CapturedGraph``), into the one pool: R first, replayed
-        once from ``gen``'s state so that its outputs hold a real request
-        when S's warm-up reads them, then S from where R's draws end.
-        ``gen`` is left as it was."""
-        (cfg, n_init, n_iter, n_gauss, n_rand, method, image_cap, sigma,
-         min_score) = self.program_args(cloud)
-        net, device = self.detector.net, cloud.device
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        private = torch.Generator(device=device)
-        private.set_state(gen.get_state())
-        rounds = CapturedGraph(
-            device, lambda g, c: _cem_rounds(c, g, cfg, n_init, n_iter,
-                                             n_gauss, n_rand, method, sigma),
-            (cloud,), private, self.pool)
-        rounds.replay(cloud)
-        private = torch.Generator(device=device)
-        private.set_state(rounds.gen.get_state())
-        scoring = CapturedGraph(
-            device, lambda g: _cem_scoring(rounds.inputs[0], rounds.out[0],
-                                           net, g, cfg, image_cap, min_score),
-            (), private, self.pool)
-        return FusedGraphs(rounds, scoring)
-
     def _detect_program(self, cloud: CloudArrays, gen: torch.Generator
                         ) -> Tuple[Grasps, List[int], int, Grasps, tuple]:
-        """The fused route: on a card R's replay (span ``cem_rounds``), then
-        S's and the one read of the round counts and the final count (span
-        ``cem_scoring``), both in the span ``cem_program``, a new key
-        captured first (span ``cem_capture``); on the CPU ``_cem_program``
-        run eagerly, then the read."""
-        if cloud.device.type != "cuda":
-            with profiling.span("cem_program"):
-                out, counts, scored, slots = _cem_program(
-                    cloud, self.detector.net, gen, *self.program_args(cloud))
-                return (out, *_read_counts(out, counts), scored, slots)
-        if gen.device.type != "cuda":
-            raise ValueError(f"the CEM program draws on {cloud.device}; the "
-                             f"generator is on {gen.device}")
-        key = self.graph_key(cloud)
-        if key not in self.graphs:
-            with profiling.span("cem_capture"):
-                self.graphs[key] = self._capture(cloud, gen)
-        pair = self.graphs[key]
+        """The fused route, in the span ``cem_program``: R, ``_cem_rounds``
+        (span ``cem_rounds``), then S, ``_cem_scoring`` on R's outputs in
+        place, and the one read of the round counts and the final count
+        (span ``cem_scoring``), each a program of ``self.programs`` keyed
+        by its name and ``graph_key`` (a new key's capture in the span
+        ``cem_capture``)."""
+        (cfg, n_init, n_iter, n_gauss, n_rand, method, image_cap, sigma,
+         min_score) = self.program_args(cloud)
+        net, key = self.detector.net, self.graph_key(cloud)
+        self.programs.last_graphs = []
+
+        def rounds(g, c):
+            # R hands its cloud on: on a card, S reads the graph's copy.
+            return c, _cem_rounds(c, g, cfg, n_init, n_iter, n_gauss, n_rand,
+                                  method, sigma)
         with profiling.span("cem_program"):
             with profiling.span("cem_rounds"):
-                pair.rounds.gen.set_state(gen.get_state())
-                _, counts = pair.rounds.replay(cloud)
+                cloud_r, (rounds_out, counts) = self.programs.run(
+                    ("cem_rounds",) + key, rounds, (cloud,), gen,
+                    capture_span="cem_capture")
             with profiling.span("cem_scoring"):
-                pair.scoring.gen.set_state(pair.rounds.gen.get_state())
-                out, scored, slots = pair.scoring.replay()
-                gen.set_state(pair.scoring.gen.get_state())
+                out, scored, slots = self.programs.run(
+                    ("cem_scoring",) + key,
+                    lambda g: _cem_scoring(cloud_r, rounds_out, net, g, cfg,
+                                           image_cap, min_score),
+                    (), gen, capture_span="cem_capture")
                 out = clone_tree(out)
                 return (out, *_read_counts(out, counts), scored, slots)
 

@@ -248,7 +248,7 @@ class DataGenerator:
         labels_all: List[np.ndarray] = []
         n_pos = 0
         zero_streak = 0
-        det.last_graphs = []
+        det.programs.last_graphs = []
         for _ in range(8):
             labels, images = self._attempt(view_cloud, mesh_cloud, generator,
                                            cfg)
@@ -284,7 +284,7 @@ class DataGenerator:
         grasps, images, n_valid = det.candidates_with_images(
             view_cloud, generator, cfg)
 
-        labels = det._run(
+        labels = det.programs.run(
             ("relabel", mesh_cloud.device, grasps.capacity,
              mesh_cloud.capacity, mesh_cloud.num_cameras, cfg),
             lambda _, mesh, g: cand.reevaluate_hypotheses(mesh, g, cfg)[0],

@@ -45,7 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpd_tpu_torch import profiling, resolve_device
-from gpd_tpu_torch.detector import CapturedGraph, clone_tree
+from gpd_tpu_torch.graphs import Programs, clone_tree
 from gpd_tpu_torch.net import lenet
 from gpd_tpu_torch.parallel import sharded
 
@@ -103,8 +103,8 @@ def eval_step(net: lenet.LeNet, images_u8: torch.Tensor,
 
 class StepGraphs:
     """``train_step`` and ``eval_step`` as gpd_tpu's jitted programs: on a
-    card each replays a CUDA graph (``detector.CapturedGraph``) captured at
-    the first step of its key, (step, input shapes and dtypes, the net's
+    card each replays a CUDA graph (``graphs.Programs.capture``) captured
+    at the first step of its key, (step, input shapes and dtypes, the net's
     and the optimizer's identity), all in one pool; on the CPU each runs
     eagerly. A step's inputs are copied into its graph's; its outputs
     come back as copies, so a caller may keep them across steps.
@@ -126,13 +126,17 @@ class StepGraphs:
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.graphs = {}
-        self.pool = None
+        self.programs = Programs(self.device)
         # Weak references to the nets of the eval graphs, by key.
         self._nets = {}
         # The eager steps taken so far by key, for keys that take some
         # before their capture.
         self._eager = {}
+
+    @property
+    def graphs(self) -> dict:
+        """The steps' CUDA graphs by key."""
+        return self.programs.graphs
 
     def _step(self, key: tuple, program, inputs: tuple, net_ref=None,
               eager_steps: int = 1):
@@ -155,15 +159,12 @@ class StepGraphs:
             return program(*inputs)
         if net_ref is not None:
             self._nets[key] = net_ref
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
         runs = []
 
         def record(_, *args):
             runs.append(program(*args))
             return runs[-1]
-        self.graphs[key] = CapturedGraph(self.device, record, inputs,
-                                         pool=self.pool)
+        self.programs.capture(key, record, inputs)
         return clone_tree(runs[0])      # the warm-up's; runs[1] the graph's
 
     def train_step(self, net, opt, images_u8: torch.Tensor,

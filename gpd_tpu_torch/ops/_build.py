@@ -8,11 +8,14 @@ headers, and links its libpython where this interpreter runs from it.
 Libraries go to ``gpd_tpu_torch/_build/`` (ignored by git) under a name
 that carries a hash of the source, the ``csrc/*.cuh`` headers (for
 kernels) or its own ``.h`` (for a host library), and the flags, so an
-edited source rebuilds and an unchanged one is reused.
+edited source rebuilds and an unchanged one is reused. ``launch`` calls a
+kernel library's launch function and counts the launch by the name of the
+wrapper that made it (``LAUNCHES``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,7 +23,9 @@ import shutil
 import subprocess
 import sysconfig
 import threading
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -35,6 +40,8 @@ MAX_DYNAMIC_SMEM = 232448
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Kernel launches by the name of the wrapper that made them (``launch``).
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def nvcc() -> str:
@@ -169,3 +176,23 @@ def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return f"CUDA error {err}: {fn(err).decode()}"
+
+
+def launch(name: str, library: str, symbol: str, argtypes: Sequence,
+           device: torch.device, *args) -> None:
+    """Calls ``symbol`` of the kernel library ``library`` (built at first
+    use) with ``args`` (of the ctypes ``argtypes``) and, last, the current
+    stream of ``device``, under that device's guard, and counts one launch
+    of the wrapper ``name`` in ``LAUNCHES``. The function returns a CUDA
+    error code; one that is not zero raises."""
+    lib = load(library)
+    fn = getattr(lib, symbol)           # the library keeps one per symbol
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{cuda_error_string(lib, err)}")
+    LAUNCHES[name] += 1

@@ -268,8 +268,7 @@ def _kernel_geometry(p: SearchParams) -> np.ndarray:
 
 
 _HAND_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 3)
 
 
 def _check_search_operands(points, normals, sample_pos, frames, rfix, member,
@@ -323,7 +322,7 @@ def hand_search(points, normals, sample_pos, frames, rfix, member, idx,
     CUDA tensors launch the kernel in csrc/hand_search.cu (built at first
     use; its header notes the bound on the H100 and the design), one launch
     for every sample; CPU tensors take ``_eval_orientations``, the plain
-    version. ``hand_search.launches`` counts kernel launches.
+    version.
     """
     _check_search_operands(points, normals, sample_pos, frames, rfix, member,
                            idx, params)
@@ -339,10 +338,6 @@ def hand_search(points, normals, sample_pos, frames, rfix, member, idx,
     if points.device.type != "cuda":
         raise ValueError(f"hand_search runs on cuda or cpu, not "
                          f"{points.device}")
-    lib = _build.load("hand_search")
-    fn = lib.hand_search_launch
-    fn.argtypes = _HAND_ARGTYPES
-    fn.restype = ctypes.c_int
     S, M, L = sample_pos.shape[0], rfix.shape[0], member.shape[1]
     dev = points.device
 
@@ -355,25 +350,17 @@ def hand_search(points, normals, sample_pos, frames, rfix, member, idx,
     members = torch.empty(S, dtype=torch.int32, device=dev)
     geom = _kernel_geometry(params)
     depths = len(params.depths) if params.deepen_hand else 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(points.data_ptr(), normals.data_ptr(), sample_pos.data_ptr(),
-                 frames.data_ptr(), rfix.data_ptr(), member.data_ptr(),
-                 None if idx is None else idx.data_ptr(),
-                 *(out[k].data_ptr() for k in ("R", "pos", "top", "bottom",
-                                                "center", "width", "mid",
-                                                "valid", "full", "half")),
-                 members.data_ptr(), S, M, L, max(1, min(L, HAND_TILE)),
-                 geom.ctypes.data, params.num_placements, depths,
-                 params.min_viable, stream)
-    if err != 0:
-        raise RuntimeError(f"hand_search launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
-    hand_search.launches += 1
+    _build.launch("hand_search", "hand_search", "hand_search_launch",
+                  _HAND_ARGTYPES, dev, points.data_ptr(), normals.data_ptr(),
+                  sample_pos.data_ptr(), frames.data_ptr(), rfix.data_ptr(),
+                  member.data_ptr(), None if idx is None else idx.data_ptr(),
+                  *(out[k].data_ptr() for k in ("R", "pos", "top", "bottom",
+                                                 "center", "width", "mid",
+                                                 "valid", "full", "half")),
+                  members.data_ptr(), S, M, L, max(1, min(L, HAND_TILE)),
+                  geom.ctypes.data, params.num_placements, depths,
+                  params.min_viable)
     return out, members
-
-
-hand_search.launches = 0
 
 
 def _search_neighbors(sample_pos, frame_valid, points, pmask, radius: float,

@@ -280,7 +280,7 @@ def _check_operands(midx, mvals, sidx, svals, size: int):
                          "block has")
 
 
-_RASTER_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_RASTER_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,29 +290,23 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch_blocks(symbol: str, out, midx, mvals, sidx, svals, size: int):
+def _launch_blocks(name: str, symbol: str, out, midx, mvals, sidx, svals,
+                   size: int):
     """Runs ``symbol`` of csrc/raster_blocks.cu (``raster_blocks_launch``
-    or ``raster_images_launch``) on checked CUDA operands into ``out``."""
+    or ``raster_images_launch``) on checked CUDA operands into ``out``, a
+    launch of the wrapper ``name``."""
     if midx.device.type != "cuda":
         raise ValueError(f"raster_blocks runs on cuda or cpu, not "
                          f"{midx.device}")
-    lib = _build.load("raster_blocks")
-    fn = getattr(lib, symbol)
-    fn.argtypes = _RASTER_ARGTYPES
-    fn.restype = ctypes.c_int
     G, _, Km = midx.shape
     with_shadow = sidx is not None
     Ks = sidx.shape[-1] if with_shadow else 0
-    with torch.cuda.device(midx.device):
-        stream = torch.cuda.current_stream(midx.device).cuda_stream
-        err = fn(midx.data_ptr(), mvals.data_ptr(),
-                 sidx.data_ptr() if with_shadow else None,
-                 svals.data_ptr() if with_shadow else None,
-                 out.data_ptr(), G, Km, Ks, size, int(with_shadow),
-                 _num_sms(midx.device.index), stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
+    _build.launch(name, "raster_blocks", symbol, _RASTER_ARGTYPES,
+                  midx.device, midx.data_ptr(), mvals.data_ptr(),
+                  sidx.data_ptr() if with_shadow else None,
+                  svals.data_ptr() if with_shadow else None,
+                  out.data_ptr(), G, Km, Ks, size, int(with_shadow),
+                  _num_sms(midx.device.index))
     return out
 
 
@@ -334,8 +328,8 @@ def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
 
     CUDA tensors launch the kernel in csrc/raster_blocks.cu (built at first
     use; its header notes the bound on the H100 and the design); CPU
-    tensors take ``raster_blocks_ref``. ``raster_blocks.launches`` counts
-    kernel launches. ``make_images`` takes ``raster_images`` instead.
+    tensors take ``raster_blocks_ref``. ``make_images`` takes
+    ``raster_images`` instead.
     """
     _check_operands(midx, mvals, sidx, svals, size)
     if midx.device.type == "cpu":
@@ -343,13 +337,8 @@ def raster_blocks(midx, mvals, sidx=None, svals=None, size: int = 60):
     out = torch.empty((midx.shape[0], 15 if sidx is None else 21,
                        raster_rows(size), raster_rows(size)),
                       dtype=torch.float32, device=midx.device)
-    _launch_blocks("raster_blocks_launch", out, midx, mvals, sidx, svals,
-                   size)
-    raster_blocks.launches += 1
-    return out
-
-
-raster_blocks.launches = 0
+    return _launch_blocks("raster_blocks", "raster_blocks_launch", out, midx,
+                          mvals, sidx, svals, size)
 
 
 def raster_images(midx, mvals, sidx=None, svals=None, size: int = 60):
@@ -366,7 +355,6 @@ def raster_images(midx, mvals, sidx=None, svals=None, size: int = 60):
     images written; from the same f32 sums its bytes are
     ``_raster_finish``'s (the sums' atomics add in a run-dependent order).
     CPU tensors take ``_raster_finish(raster_blocks_ref(...))``.
-    ``raster_images.launches`` counts kernel launches.
     """
     _check_operands(midx, mvals, sidx, svals, size)
     num_channels = 12 if sidx is None else 15
@@ -375,13 +363,8 @@ def raster_images(midx, mvals, sidx=None, svals=None, size: int = 60):
                                                 size), size, num_channels)
     out = torch.empty((midx.shape[0], num_channels, size, size),
                       dtype=torch.uint8, device=midx.device)
-    _launch_blocks("raster_images_launch", out, midx, mvals, sidx, svals,
-                   size)
-    raster_images.launches += 1
-    return out
-
-
-raster_images.launches = 0
+    return _launch_blocks("raster_images", "raster_images_launch", out, midx,
+                          mvals, sidx, svals, size)
 
 
 def raster_sums_ref(rows, cols, aug, size: int):
@@ -431,32 +414,25 @@ def _check_sums_operands(row_sets, cols, aug, size: int):
                          "block has")
 
 
-_SUMS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SUMS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 
 
-def _launch_sums(row_sets, cols, aug, size: int):
-    """Runs csrc/raster_sums.cu on one or two row sets; returns its
-    (G, size, size, Cp) or (G, 2, size, size, Cp) output."""
+def _launch_sums(name: str, row_sets, cols, aug, size: int):
+    """Runs csrc/raster_sums.cu on one or two row sets, a launch of the
+    wrapper ``name``; returns its (G, size, size, Cp) or (G, 2, size, size,
+    Cp) output."""
     if cols.device.type != "cuda":
         raise ValueError(f"raster_sums runs on cuda or cpu, not "
                          f"{cols.device}")
-    lib = _build.load("raster_sums")
-    fn = lib.raster_sums_launch
-    fn.argtypes = _SUMS_ARGTYPES
-    fn.restype = ctypes.c_int
     G, K, Cp = aug.shape
     two = len(row_sets) == 2
     out = torch.empty((G, 2, size, size, Cp) if two else (G, size, size, Cp),
                       dtype=torch.float32, device=cols.device)
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream(cols.device).cuda_stream
-        err = fn(row_sets[0].data_ptr(),
-                 row_sets[1].data_ptr() if two else None, cols.data_ptr(),
-                 aug.data_ptr(), out.data_ptr(), G, K, Cp, size,
-                 _num_sms(cols.device.index), stream)
-    if err != 0:
-        raise RuntimeError(f"raster_sums launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
+    _build.launch(name, "raster_sums", "raster_sums_launch", _SUMS_ARGTYPES,
+                  cols.device, row_sets[0].data_ptr(),
+                  row_sets[1].data_ptr() if two else None, cols.data_ptr(),
+                  aug.data_ptr(), out.data_ptr(), G, K, Cp, size,
+                  _num_sms(cols.device.index))
     return out
 
 
@@ -474,18 +450,12 @@ def raster_sums(rows, cols, aug, size: int):
 
     CUDA tensors launch the kernel in csrc/raster_sums.cu (built at first
     use; its header notes the bound on the H100 and the design); CPU
-    tensors take ``raster_sums_ref``. ``raster_sums.launches`` counts
-    kernel launches.
+    tensors take ``raster_sums_ref``.
     """
     _check_sums_operands((rows,), cols, aug, size)
     if cols.device.type == "cpu":
         return raster_sums_ref(rows, cols, aug, size)
-    out = _launch_sums((rows,), cols, aug, size)
-    raster_sums.launches += 1
-    return out
-
-
-raster_sums.launches = 0
+    return _launch_sums("raster_sums", (rows,), cols, aug, size)
 
 
 def raster_sums2(rows_a, rows_b, cols, aug, size: int):
@@ -495,16 +465,11 @@ def raster_sums2(rows_a, rows_b, cols, aug, size: int):
     two work items of its persistent kernel). Returns (G, 2, size, size,
     Cp) float32: [:, 0] against ``rows_a``, [:, 1] against ``rows_b``. No
     detection path calls it (nor gpd_tpu's). CPU tensors take
-    ``raster_sums2_ref``; ``raster_sums2.launches`` counts launches."""
+    ``raster_sums2_ref``."""
     _check_sums_operands((rows_a, rows_b), cols, aug, size)
     if cols.device.type == "cpu":
         return raster_sums2_ref(rows_a, rows_b, cols, aug, size)
-    out = _launch_sums((rows_a, rows_b), cols, aug, size)
-    raster_sums2.launches += 1
-    return out
-
-
-raster_sums2.launches = 0
+    return _launch_sums("raster_sums2", (rows_a, rows_b), cols, aug, size)
 
 
 def _cells(c0, c1, size: int):

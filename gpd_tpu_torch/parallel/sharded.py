@@ -24,7 +24,7 @@ broadcasts, NCCL between cards, gloo between CPU processes.
 Programs. gpd_tpu jits each sharded function, so each rank's part runs as
 device programs and reads nothing back to the host. Given an ``owner``, the
 ``GraspDetector`` whose ``net`` they score with, the functions here run
-each rank's part as the owner's programs (``GraspDetector._run``): on its
+each rank's part as the owner's programs (``graphs.Programs.run``): on its
 card CUDA graphs per static key, in its graphs and its one pool beside
 ``detect``'s, captured at a key's first call; on the CPU the same programs
 eagerly. ``detect_sharded_raw`` is ``detect``'s A, the read of A's counts
@@ -47,9 +47,9 @@ import torch.distributed as dist
 
 from gpd_tpu_torch.config import DetectorConfig
 from gpd_tpu_torch.core.types import CloudArrays, Grasps
-from gpd_tpu_torch.detector import (candidates_stage, clone_tree,
-                                    detect_core, score_candidates,
-                                    select_and_cluster)
+from gpd_tpu_torch.detector import (candidates_stage, detect_core,
+                                    score_candidates, select_and_cluster)
+from gpd_tpu_torch.graphs import clone_tree
 from gpd_tpu_torch.net import lenet
 
 
@@ -217,7 +217,7 @@ def select_merged(grasps: Grasps, cfg: DetectorConfig,
     if owner is None:
         return select_and_cluster(grasps, cfg)
     key = ("sharded_select", grasps.valid.device, grasps.capacity, cfg)
-    return clone_tree(owner._run(
+    return clone_tree(owner.programs.run(
         key, lambda _, g: select_and_cluster(g, cfg), (grasps,)))
 
 
@@ -247,7 +247,7 @@ def candidates_sharded_raw(cloud: CloudArrays, sample_pos: torch.Tensor,
     else:
         key = ("sharded_candidates", cloud.device, cloud.capacity,
                cloud.num_cameras, cfg, sample_pos.shape[0])
-        g = owner._run(key, lambda _, c, p, m: candidates_stage(
+        g = owner.programs.run(key, lambda _, c, p, m: candidates_stage(
             c, p, m, cfg, host_reads=False), (cloud, sample_pos, sample_mask))
     return gather_grasps(mesh, g)
 
@@ -274,7 +274,7 @@ def score_sharded_raw(cloud: CloudArrays, grasps: Grasps,
     _check_owner(owner, net)
     key = ("sharded_score", cloud.device, cloud.capacity, cloud.num_cameras,
            cfg, sample_pos.shape[0], id(net), image_cap)
-    g, _ = owner._run_drawing(key, lambda r, c, b, p, m: score_candidates(
+    g, _ = owner.programs.run(key, lambda r, c, b, p, m: score_candidates(
         c, b, p, m, net, r, cfg, image_cap, host_reads=False),
         (cloud, mine, sample_pos, sample_mask), rank_gen)
     return gather_grasps(mesh, g)

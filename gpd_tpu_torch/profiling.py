@@ -40,11 +40,11 @@ so a request's spans are those nested in its ``detect``, with the
     train_steps         net.train.fit: the loop over one block's steps
     train_eval          net.train.fit: each evaluate call (ends in a read)
     cem_detect          SequentialImportanceSampling.detect: a CEM request
-      cem_capture         a new fused key's warm-ups and two captures
-      cem_program         the fused route: on a card the two replays and
-                          the read, on the CPU the eager body and the read
-        cem_rounds          R's replay (the rounds)
-        cem_scoring         S's replay (scoring, selection) and the read
+      cem_program         the fused route: R, S and the read (replays on a
+                          card, eager runs on the CPU)
+        cem_rounds          R (the rounds)
+        cem_scoring         S (scoring, selection) and the read
+          cem_capture         in either, a new key's warm-up and capture
       cem_rounds,         the loop's (``_force_loop``, ``mesh=``) phases
       cem_scoring,
       select_and_cluster

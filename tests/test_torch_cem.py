@@ -441,10 +441,12 @@ def test_fused_program_equals_the_loop(channels, method):
     at the same state."""
     sis, cloud = rods_sis(channels, method)
     g_fused, g_loop = gen(3), gen(3)
-    with mock.patch.object(tcem, "_cem_program",
-                           wraps=tcem._cem_program) as program:
+    with mock.patch.object(tcem, "_cem_rounds",
+                           wraps=tcem._cem_rounds) as rounds, \
+            mock.patch.object(tcem, "_cem_scoring",
+                              wraps=tcem._cem_scoring) as scoring:
         fused = sis.detect(cloud, generator=g_fused, verbose=False)
-    assert program.call_count == 1
+    assert rounds.call_count == scoring.call_count == 1
     counts, n_fused = sis.last_round_counts, sis.last_num_grasps
     scored, slots, stats = sis.last_scored, sis.last_round_slots, \
         sis.last_counts
@@ -508,8 +510,8 @@ def test_program_reads_nothing_back(channels, method):
 
 def test_fused_request_is_one_profiler_span(tmp_path):
     """The fused route on the CPU is traced as one span, cem_program, in
-    the request's cem_detect, and none of the loop's phases (on a card
-    cem_program holds R's and S's replays, tests/test_torch_cem_graph.py)."""
+    the request's cem_detect, holding R's and S's runs (cem_rounds,
+    cem_scoring) as on a card, and no selection span of the loop's."""
     sis, cloud = rods_sis(3, draws.SUM_OF_GAUSSIANS)
     with profiling.maybe_trace(str(tmp_path)):
         sis.detect(cloud, generator=gen(1), verbose=False)
@@ -517,5 +519,5 @@ def test_fused_request_is_one_profiler_span(tmp_path):
     with open(tmp_path / name) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
-    assert {"cem_detect", "cem_program"} <= names
-    assert not names & {"cem_rounds", "cem_scoring", "select_and_cluster"}
+    assert {"cem_detect", "cem_program", "cem_rounds", "cem_scoring"} <= names
+    assert "select_and_cluster" not in names

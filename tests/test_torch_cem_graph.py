@@ -23,8 +23,7 @@ from gpd_tpu_torch import cem
 from gpd_tpu_torch.config import CEMConfig, DetectorConfig
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.detector import GraspDetector
-from gpd_tpu_torch.ops import candidates as cand
-from gpd_tpu_torch.ops import images as img
+from gpd_tpu_torch.ops import _build
 from test_torch_threads import set_cpu_share
 
 set_cpu_share()
@@ -66,12 +65,12 @@ def test_one_capture_per_key():
     sis, cloud = scene_sis()
     sis.detect(cloud, generator=seeded(0), verbose=False)
     sis.detect(cloud, generator=seeded(1), verbose=False)
-    assert len(sis.graphs) == 1
+    assert [k[0] for k in sis.graphs] == ["cem_rounds", "cem_scoring"]
     _, bigger = scene_sis(capacity=2 * cloud.capacity)
     sis.detect(bigger, generator=seeded(0), verbose=False)
-    assert len(sis.graphs) == 2
+    assert len(sis.graphs) == 4
     sis.detect(bigger, generator=seeded(2), verbose=False)
-    assert len(sis.graphs) == 2
+    assert len(sis.graphs) == 4
 
 
 @pytest.mark.cuda
@@ -92,7 +91,7 @@ def test_request_launches_two_graphs_then_reads(tmp_path):
             "traceEvents"] if e.get("ph") == "X"
             and e.get("cat") == "cuda_runtime")
     launches = [t for t, n in calls if n.startswith("cudaGraphLaunch")]
-    assert len(launches) == 2 and len(sis.graphs) == 1
+    assert len(launches) == 2 and len(sis.graphs) == 2
     reads = [t for t, n in calls
              if n.startswith(("cudaMemcpy", "cudaStreamSynchronize",
                               "cudaDeviceSynchronize"))]
@@ -127,16 +126,15 @@ def test_replay_runs_the_captured_launches():
     needs_card()
     sis, cloud = scene_sis()
     sis.detect(cloud, generator=seeded(0), verbose=False)
-    (entry,) = sis.graphs.values()
+    r, s = sis.graphs.values()
     rounds = 1 + CEM_KW["num_iterations"]
-    assert entry.launches == [0, 0, 0, rounds, rounds]
-    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
-                cand.hand_search, img.raster_images)
-    before = [k.launches for k in wrappers]
+    assert r.launches == {"hand_search": rounds}
+    assert s.launches == {"raster_images": rounds}
+    before = _build.LAUNCHES.copy()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         sis.detect(cloud, generator=seeded(1), verbose=False)
-    assert [k.launches for k in wrappers] == before
+    assert _build.LAUNCHES == before
     for name in ("raster_blocks", "hand_search"):
         ran = [e for e in prof.events() if name in e.name
                and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -158,7 +156,7 @@ def test_keys_in_one_pool_keep_their_results():
     for c in (cloud, bigger, cloud, bigger):
         out = sis.detect(c, generator=seeded(6), verbose=False).to_host()
         seen.append((sis.last_round_counts, sis.last_num_grasps, out))
-    assert len(sis.graphs) == 2 and sis.pool is not None
+    assert len(sis.graphs) == 4 and sis.pool is not None
     for (rounds, n, out), (rounds2, n2, out2) in zip(seen[:2], seen[2:]):
         assert rounds == rounds2 and n == n2 > 0
         pa, pb = out.position[out.valid], out2.position[out2.valid]

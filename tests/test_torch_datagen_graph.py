@@ -27,8 +27,8 @@ from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.datasets import synthetic as syn
+from gpd_tpu_torch.ops import _build
 from gpd_tpu_torch.ops import candidates as cand
-from gpd_tpu_torch.ops import images as img
 from test_torch_threads import set_cpu_share
 
 set_cpu_share()
@@ -240,10 +240,10 @@ def test_one_capture_per_datagen_key():
     assert {k[0] for k in seen} == {"candidates", "score", "relabel"}
     assert all(k[-1] == "images" for k in seen if k[0] == "score")
     assert set(attempt_keys(det)) == seen
-    n, before = len(det.graphs), img.raster_images.launches
+    n, before = len(det.graphs), _build.LAUNCHES.copy()
     gen.generate_view(view, mesh, g.manual_seed(0), np.random.default_rng(0))
     assert len(det.graphs) == n and set(det.last_graphs) == seen
-    assert img.raster_images.launches == before
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -29,8 +29,8 @@ from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.net import lenet
+from gpd_tpu_torch.ops import _build
 from gpd_tpu_torch.ops import candidates as cand
-from gpd_tpu_torch.ops import images as img
 from gpd_tpu_torch.ops.frames import estimate_frames
 from gpd_tpu_torch.ops.neighbors import radius_neighbors
 from test_torch_threads import set_cpu_share
@@ -157,19 +157,19 @@ def test_few_valid_hands_take_one_live_chunk():
 
 def test_a_new_net_drops_the_old_nets_graphs():
     """GraspDetector.net's setter on the keys a request, a preprocess and a
-    data-generation view make (``_run`` patched to record each key, as a
-    card would capture it): the same net drops nothing; another net drops
+    data-generation view make (``det.programs.run`` patched to record each
+    key, as a card would capture it): the same net drops nothing; another net drops
     the keys that hold the old net's identity (detect's A, B and C and
     data generation's B) and keeps the preprocess and relabeling keys."""
     det, cloud = rods_detector(15)
-    run = det._run
+    run = det.programs.run
 
     def recording_run(key, program, inputs=(), generator=None, **kw):
         det.graphs[key] = None
         return run(key, program, inputs, generator, **kw)
     dg = datagen.DataGenerator(det, datagen.DataGenConfig(
         min_grasps_per_view=1))
-    with mock.patch.object(det, "_run", recording_run):
+    with mock.patch.object(det.programs, "run", recording_run):
         from test_torch_detector import rods_only
         p, cs, vp = rods_only(6)
         det.preprocess_cloud(p, view_points=vp, cam_source=cs)
@@ -268,15 +268,13 @@ def test_replay_runs_the_captured_launches():
     det.detect(cloud, generator=seeded(0), verbose=False)
     a, b, c = (det.graphs[k] for k in det.last_graphs)
     chunks = det.last_graphs[1][-2] // det.image_cap(1000)
-    assert a.launches == [0, 0, 0, 1, 0] and c.launches == [0, 0, 0, 0, 0]
-    assert b.launches == [0, 0, 0, 0, chunks] and chunks >= 1
-    wrappers = (img.raster_blocks, img.raster_sums, img.raster_sums2,
-                cand.hand_search, img.raster_images)
-    before = [k.launches for k in wrappers]
+    assert a.launches == {"hand_search": 1} and c.launches == {}
+    assert b.launches == {"raster_images": chunks} and chunks >= 1
+    before = _build.LAUNCHES.copy()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         det.detect(cloud, generator=seeded(0), verbose=False)
-    assert [k.launches for k in wrappers] == before
+    assert _build.LAUNCHES == before
     for name, n in (("raster_blocks", chunks), ("hand_search", 1)):
         ran = [e for e in prof.events() if name in e.name
                and e.device_type == torch.autograd.DeviceType.CUDA]

@@ -291,7 +291,8 @@ def test_whole_slice_on_own_preprocessed_clouds():
 
 
 def test_detect_stage_times():
-    """sync_stages adds each stage's time; the stages sum to the request."""
+    """The staged route times each stage; the stages sum to at most the
+    request."""
     p, cs, vp = lattice_shell()
     td = tdet.GraspDetector(DetectorConfig(num_samples=16, voxelize=False,
                                            normals_radius=0.008),
@@ -299,12 +300,12 @@ def test_detect_stage_times():
     cloud = td.preprocess_cloud(p, view_points=vp, cam_source=cs)
     td.detect(cloud, verbose=False)
     assert set(td.last_runtimes) == {"detect", "select", "total"}
-    td.detect(cloud, verbose=False, sync_stages=True)
+    td.detect(cloud, verbose=False, staged=True)
     rt = td.last_runtimes
-    stages = ("sample", "candidates", "descriptors", "images", "classify")
-    assert set(rt) == {"detect", "select", "total", *stages}
+    stages = ("candidates", "images", "classify")
+    assert set(rt) == {"total", *stages}
     assert all(rt[s] > 0 for s in stages)
-    assert sum(rt[s] for s in stages) + rt["select"] <= rt["total"] * 1.001
+    assert sum(rt[s] for s in stages) <= rt["total"] * 1.001
 
 
 def cluster_batch(n_valid, G=64, seed=0):

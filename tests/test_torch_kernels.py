@@ -19,6 +19,7 @@ from gpd_tpu_torch import detector as tdet
 from gpd_tpu_torch.config import DetectorConfig, ImageGeometry
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.net import lenet
+from gpd_tpu_torch.ops import _build
 from gpd_tpu_torch.ops import candidates as cand
 from gpd_tpu_torch.ops import images as img
 from gpd_tpu_torch.ops.frames import estimate_frames
@@ -51,10 +52,10 @@ def sums_operands(rng, G, K, Cp, size=SIZE):
 
 def test_raster_wrapper_checks_and_cpu_dispatch():
     mi, mv = raster_operands(np.random.default_rng(3), 2, 128, 6)
-    before = img.raster_blocks.launches
+    before = _build.LAUNCHES["raster_blocks"]
     out = img.raster_blocks(mi, mv, size=SIZE)
     assert torch.equal(out, img.raster_blocks_ref(mi, mv, size=SIZE))
-    assert img.raster_blocks.launches == before     # no kernel on the CPU
+    assert _build.LAUNCHES["raster_blocks"] == before     # no kernel on the CPU
     with pytest.raises(ValueError):
         img.raster_blocks(mi, mv.float(), size=SIZE)
     with pytest.raises(ValueError):
@@ -77,11 +78,11 @@ def test_sums_wrapper_checks_and_cpu_dispatch(two):
 
     def call(cols=cols, aug=aug, size=SIZE):
         return fn(*rows, cols, aug, size)
-    before = fn.launches
+    before = _build.LAUNCHES[fn.__name__]
     out = call()
     assert torch.equal(out, ref(*rows, cols, aug, SIZE))
     assert out.shape == ((3, 2, SIZE, SIZE, 4) if two else (3, SIZE, SIZE, 4))
-    assert fn.launches == before                    # no kernel on the CPU
+    assert _build.LAUNCHES[fn.__name__] == before                    # no kernel on the CPU
     with pytest.raises(ValueError):                 # dtype
         call(aug=aug.double())
     with pytest.raises(ValueError):
@@ -96,7 +97,7 @@ def test_sums_wrapper_checks_and_cpu_dispatch(two):
         call(aug=aug.to("meta"))
     with pytest.raises(ValueError):                 # shared memory
         call(size=130 if two else 200)
-    assert fn.launches == before
+    assert _build.LAUNCHES[fn.__name__] == before
 
 
 # The persistent kernels' ragged cases: a single hand, a hand count that
@@ -129,13 +130,13 @@ def test_sums_kernel_matches_plain_version_on_card(two, Cp, K, G):
     fn = img.raster_sums2 if two else img.raster_sums
     ref = img.raster_sums2_ref if two else img.raster_sums_ref
     expect = ref(*rows, cols, aug, SIZE)
-    before = fn.launches
+    before = _build.LAUNCHES[fn.__name__]
     for _ in range(2):
         out = fn(*rows, cols, aug, SIZE)
         torch.cuda.synchronize()
         assert torch.equal(out[..., -1], expect[..., -1])
         torch.testing.assert_close(out, expect, atol=1e-3, rtol=1e-5)
-    assert fn.launches == before + 2
+    assert _build.LAUNCHES[fn.__name__] == before + 2
 
 
 @pytest.mark.cuda
@@ -153,13 +154,13 @@ def test_raster_kernel_matches_plain_version_on_card(with_shadow, K, G):
         args[2:] = [None, None]
     ref = img.raster_blocks_ref(*args, size=SIZE)
     counts = [4, 9, 14] + ([16, 18, 20] if with_shadow else [])
-    before = img.raster_blocks.launches
+    before = _build.LAUNCHES["raster_blocks"]
     for _ in range(2):
         out = img.raster_blocks(*args, size=SIZE)
         torch.cuda.synchronize()
         assert torch.equal(out[:, counts], ref[:, counts])
         torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
-    assert img.raster_blocks.launches == before + 2
+    assert _build.LAUNCHES["raster_blocks"] == before + 2
 
 
 @pytest.mark.cuda
@@ -191,13 +192,13 @@ def test_kernels_off_the_main_shapes_on_card(kernel, size, Cp):
         ref = getattr(img, kernel + "_ref")(*rows, cols, aug, size)
         counts = lambda t: t[..., -1]
         call = lambda: fn(*rows, cols, aug, size)
-    before = fn.launches
+    before = _build.LAUNCHES[fn.__name__]
     for _ in range(2):
         out = call()
         torch.cuda.synchronize()
         assert torch.equal(counts(out), counts(ref))
         torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
-    assert fn.launches == before + 2
+    assert _build.LAUNCHES[fn.__name__] == before + 2
 
 
 @pytest.mark.cuda
@@ -218,13 +219,13 @@ def test_raster_kernel_at_the_staged_chunk_on_card():
         return idx, vals.to(torch.bfloat16).contiguous()
     args = [*operands(6), *operands(3)]
     ref = img.raster_blocks_ref(*args, size=SIZE)
-    before = img.raster_blocks.launches
+    before = _build.LAUNCHES["raster_blocks"]
     out = img.raster_blocks(*args, size=SIZE)
     torch.cuda.synchronize()
     counts = [4, 9, 14, 16, 18, 20]
     assert torch.equal(out[:, counts], ref[:, counts])
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
-    assert img.raster_blocks.launches == before + 1
+    assert _build.LAUNCHES["raster_blocks"] == before + 1
 
 
 # The images kernel (raster_images: raster_blocks' sums finished into
@@ -247,19 +248,19 @@ def test_images_wrapper_checks_and_cpu_dispatch(with_shadow):
     si, sv = raster_operands(rng, 3, 96, 3)
     args = (mi, mv, si, sv) if with_shadow else (mi, mv, None, None)
     C = 15 if with_shadow else 12
-    before = img.raster_images.launches
+    before = _build.LAUNCHES["raster_images"]
     out = img.raster_images(*args, size=SIZE)
     assert out.shape == (3, C, SIZE, SIZE) and out.dtype == torch.uint8
     assert torch.equal(out, images_ref(args))
     assert out.any()
-    assert img.raster_images.launches == before     # no kernel on the CPU
+    assert _build.LAUNCHES["raster_images"] == before     # no kernel on the CPU
     with pytest.raises(ValueError):
         img.raster_images(mi, mv.float(), *args[2:], size=SIZE)
     with pytest.raises(ValueError):
         img.raster_images(mi, mv, si, None, size=SIZE)
     with pytest.raises(ValueError):
         img.raster_images(*args, size=200)
-    assert img.raster_images.launches == before
+    assert _build.LAUNCHES["raster_images"] == before
 
 
 def image_hands(channels, G=5, K=64, seed=9):
@@ -296,11 +297,11 @@ def test_make_images_cpu_route_finishes_on_the_host(channels, monkeypatch):
         return finish(*args)
     monkeypatch.setattr(img, "_raster_finish", counted)
     hands, shadow = image_hands(channels)
-    before = img.raster_images.launches
+    before = _build.LAUNCHES["raster_images"]
     out = img.make_images(*hands, **shadow)
     assert calls == [(SIZE, channels)]
     assert out.shape == (5, SIZE, SIZE, channels) and out.any()
-    assert img.raster_images.launches == before
+    assert _build.LAUNCHES["raster_images"] == before
 
 
 @pytest.mark.cuda
@@ -318,10 +319,10 @@ def test_make_images_card_route_never_finishes_on_the_host(channels,
         raise AssertionError("the card route called _raster_finish")
     monkeypatch.setattr(img, "_raster_finish", refuse)
     moved = [h.cuda() if isinstance(h, torch.Tensor) else h for h in hands]
-    before = img.raster_images.launches
+    before = _build.LAUNCHES["raster_images"]
     out = img.make_images(*moved, **{k: v.cuda() for k, v in shadow.items()})
     torch.cuda.synchronize()
-    assert img.raster_images.launches == before + 1
+    assert _build.LAUNCHES["raster_images"] == before + 1
     assert out.shape == ref.shape and out.dtype == torch.uint8
     assert int((out.cpu().int() - ref.int()).abs().max()) <= 1
 
@@ -334,7 +335,7 @@ def hold_images(args, size=SIZE, ref=None, exact=False, label=""):
     if ref is None:
         ref = images_ref([None if a is None else a.cpu() for a in args],
                          size).cuda()
-    before = img.raster_images.launches
+    before = _build.LAUNCHES["raster_images"]
     for _ in range(2):
         out = img.raster_images(*args, size=size)
         torch.cuda.synchronize()
@@ -346,7 +347,7 @@ def hold_images(args, size=SIZE, ref=None, exact=False, label=""):
         assert int(gap.max()) <= 1
         if exact:
             assert torch.equal(out, ref)
-    assert img.raster_images.launches == before + 2
+    assert _build.LAUNCHES["raster_images"] == before + 2
 
 
 def exact_values(vals):
@@ -457,8 +458,6 @@ def test_program_b_keeps_the_kernel_images_on_card(monkeypatch):
         calls.append(([a.cpu() if isinstance(a, torch.Tensor) else None
                        for a in args[:4]], out.clone()))
         return out
-    # raster_images counts its launches on the module's name, this one.
-    recording.launches = 0
     monkeypatch.setattr(img, "raster_images", recording)
     cap = det.image_cap(spos.shape[0])
     n_chunks = -(-grasps.capacity // cap)
@@ -568,7 +567,7 @@ def test_hand_search_wrapper_checks_and_cpu_dispatch():
     cloud, cfg, spos, smask = cylinder_cloud(num_samples=16)
     args = list(search_inputs(cloud, cfg, spos, smask))
     points, normals, spos, frames, rfix, member, idx, params = args
-    before = cand.hand_search.launches
+    before = _build.LAUNCHES["hand_search"]
     out, members = cand.hand_search(*args)
     ref = cand._eval_orientations(points[None] - spos[:, None],
                                   normals[None].expand(16, -1, 3), member,
@@ -580,7 +579,7 @@ def test_hand_search_wrapper_checks_and_cpu_dispatch():
     capped = list(search_inputs(cloud, cfg, spos, smask, k=256))
     out_c, members_c = cand.hand_search(*capped)
     assert torch.equal(members_c, capped[5].sum(1).int())
-    assert cand.hand_search.launches == before     # no kernel on the CPU
+    assert _build.LAUNCHES["hand_search"] == before     # no kernel on the CPU
 
     def call(i, value):
         a = list(args)
@@ -600,7 +599,7 @@ def test_hand_search_wrapper_checks_and_cpu_dispatch():
             call(i, value)
     with pytest.raises(ValueError):                # 2P slabs past 64
         call(7, dataclasses.replace(params, num_placements=33))
-    assert cand.hand_search.launches == before
+    assert _build.LAUNCHES["hand_search"] == before
 
 
 def benchmark_cloud(kind):
@@ -676,12 +675,12 @@ def test_hand_search_matches_plain_version_on_card(kind, K, axes, S):
             if idx is None else idx)
     ref = cand._eval_orientations(points[rows] - spos[:, None],
                                   normals[rows], member, frames, rfix, params)
-    before = cand.hand_search.launches
+    before = _build.LAUNCHES["hand_search"]
     for _ in range(2):
         out, members = cand.hand_search(*args)
         hold_search(out, members, ref, member,
                     f"{kind} K={member.shape[1]} M={rfix.shape[0]} S={S}")
-    assert cand.hand_search.launches == before + 2
+    assert _build.LAUNCHES["hand_search"] == before + 2
 
 
 @pytest.mark.cuda

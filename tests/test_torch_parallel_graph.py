@@ -31,7 +31,7 @@ from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.datasets import synthetic as syn
 from gpd_tpu_torch.detector import GraspDetector
 from gpd_tpu_torch.net import lenet, train
-from gpd_tpu_torch.ops import images as img
+from gpd_tpu_torch.ops import _build
 from gpd_tpu_torch.parallel import multihost, sharded
 from test_torch_threads import set_cpu_share
 
@@ -127,11 +127,11 @@ def _no_host_read(*args, **kwargs):
 
 
 def guarded(det):
-    """``det._run`` with every way of reading a tensor back to the host
-    patched to raise while a program runs; the names of the programs run
-    go to the returned list."""
+    """``det.programs.run`` with every way of reading a tensor back to the
+    host patched to raise while a program runs; the names of the programs
+    run go to the returned list."""
     from test_torch_cem import HOST_READS
-    run, names = det._run, []
+    run, names = det.programs.run, []
 
     def guarded_run(key, program, inputs=(), generator=None, **kw):
         names.append(key[0])
@@ -141,7 +141,7 @@ def guarded(det):
                     name: _no_host_read for name in HOST_READS}):
                 return program(*args)
         return run(key, no_reads, inputs, generator, **kw)
-    return mock.patch.object(det, "_run", guarded_run), names
+    return mock.patch.object(det.programs, "run", guarded_run), names
 
 
 def test_programs_read_nothing_back():
@@ -217,7 +217,8 @@ def test_cem_mesh_loop_through_the_owner(tmp_path):
         sis = tcem.SequentialImportanceSampling(det, CEMConfig(**t.CEM_KW),
                                                 mesh=mesh)
         record = {}
-        with mock.patch.object(det, "_run", wraps=det._run) as programs:
+        with mock.patch.object(det.programs, "run",
+                               wraps=det.programs.run) as programs:
             patches = t.replayed_cem(replay, record)
             out = run_patched(patches, lambda: sis.detect(
                 cloud, generator=gen0(), verbose=False))
@@ -328,9 +329,9 @@ def test_one_capture_per_key_on_the_card(nccl_one):
     one_pass(0)
     names = sorted({k[0] for k in det.graphs})
     n = len(det.graphs)
-    before = img.raster_images.launches
+    before = _build.LAUNCHES.copy()
     one_pass(1)
-    assert len(det.graphs) == n and img.raster_images.launches == before
+    assert len(det.graphs) == n and _build.LAUNCHES == before
     assert {"candidates", "score", "sharded_select", "sharded_candidates",
             "sharded_score", "cem_round"} <= set(names)
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpd_tpu_torch import graphs as layer
 from gpd_tpu_torch.net import lenet, train
 from test_torch_threads import set_cpu_share
 
@@ -167,8 +168,8 @@ def test_fit_replays_its_steps(deterministic_cudnn):
     data, held = batches(10, 15, 5), Blocks(batches(3, 15, 6, batch=5))
     ds = Blocks(data)
     losses = []
-    with mock.patch.object(train, "CapturedGraph",
-                           wraps=train.CapturedGraph) as capture:
+    with mock.patch.object(layer, "CapturedGraph",
+                           wraps=layer.CapturedGraph) as capture:
         params = train.fit(ds, held, 15, epochs=1, batch_size=16, seed=0,
                            device="cuda", data_parallel=False,
                            on_step=lambda s, l, a: losses.append(l))
@@ -221,8 +222,8 @@ def test_evaluate_captures_once_per_net():
     needs_card()
     held = Blocks(batches(3, 15, 6, batch=5))
     net = card_net()
-    with mock.patch.object(train, "CapturedGraph",
-                           wraps=train.CapturedGraph) as capture:
+    with mock.patch.object(layer, "CapturedGraph",
+                           wraps=layer.CapturedGraph) as capture:
         first = train.evaluate(net, held)
         np.testing.assert_allclose(train.evaluate(net, held), first,
                                    atol=1e-6)
