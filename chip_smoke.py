@@ -33,7 +33,14 @@ Phases; any failure exits non-zero and prints no result line:
      cloud (capacity 14336) and first PCD cloud (8192), 1000 samples, 8
      orientations, identity rows: flags and mid equal on >= 99.9% of
      slots, values within 1e-5 where valid agrees, each timed with its
-     bound (``python3 chip_smoke.py hand_search`` runs this check alone);
+     bound (``python3 chip_smoke.py hand_search`` runs this check alone).
+     Then radius_moments against radius_moments_ref and float64 on the
+     same two clouds: the normals (every point a query) and the frames
+     (1000 samples and a CEM round's 50), counts off float64 only at
+     pairs within 1e-6 r^2 of the boundary, sums within 1e-5, twice bit
+     for bit, each timed beside the plain route and two bounds (the full
+     sweep's and that of the point groups its probe counts as swept;
+     ``python3 chip_smoke.py radius_moments`` runs this check alone);
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
      synthetic two-camera table scenes, one warm-up and 3 scenes.
@@ -291,10 +298,11 @@ import numpy as np
 REQUESTS = 3
 # The kernel wrappers, each counting its launches under its own name.
 KERNELS = ("raster_blocks", "raster_images", "raster_sums", "raster_sums2",
-           "hand_search")
+           "hand_search", "radius_moments")
 # Kernel families of a profiler trace: a wrapper's kernels by their names
 # (raster_sums2's kernels are raster_sums').
-FAMILIES = ("raster_blocks", "raster_images", "raster_sums", "hand_search")
+FAMILIES = ("raster_blocks", "raster_images", "raster_sums", "hand_search",
+            "radius_moments")
 # The hand search's check: (kind, traffic, configuration, capacity of the
 # traffic's first cloud) of the benchmark's two serving cells.
 HAND_SEARCH_CLOUDS = (("table", "table_stream", "gpd15", 14336),
@@ -413,6 +421,11 @@ def bound(nbytes, n_ops):
     ops_ms = n_ops / PEAK_F32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+# f32 flops of one radius_moments pair test: three differences, a product,
+# two fused multiply-adds (two each) and the compare.
+MOMENT_PAIR_FLOPS = 9
 
 
 def hand_search_ops(P):
@@ -688,6 +701,130 @@ def check_hand_search(torch, cand, detector, GraspDetector):
                 note="no one PyTorch call computes the search: no library "
                      "yardstick")
 
+
+def check_radius_moments(torch, detector, GraspDetector):
+    """radius_moments against radius_moments_ref and float64 on the
+    benchmark's first table and PCD clouds: the normals' moments (every
+    point a query, the normals radius) and the frames' (1000 samples and
+    a CEM round's first 50, the frames radius). Counts off float64 only
+    at pairs within 1e-6 r^2 of the boundary, sums within rtol = atol =
+    1e-5 of float64 where the counts agree, twice bit for bit; the
+    kernel's probe (radius_moments_probe) gives the same sums bit for bit
+    and counts the (query warp, point group) pairs it judged and swept.
+    Then the kernel and the plain route timed beside two operations
+    bounds: the full sweep's (every live pair tested) and the swept
+    groups' (32 x 32 pair tests each). Returns the kernels-line entry: the
+    table normals' shape, the others under their names."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    timings = {}
+    for kind, cell, config, capacity in HAND_SEARCH_CLOUDS:
+        cloud, cfg = benchmark_cloud(torch, GraspDetector, cell, config)
+        if cloud.capacity != capacity:
+            fail(f"radius_moments: the {kind} cloud has capacity "
+                 f"{cloud.capacity}, not {capacity}")
+        w = cloud.mask.float()
+        centroid = (cloud.points * w[:, None]).sum(0) / w.sum().clamp(min=1)
+        p = torch.where(cloud.mask[:, None], cloud.points - centroid,
+                        1.0e6).contiguous()
+        n = cloud.normals
+        spos, smask = detector.sample_points(cloud, seeded(torch, 0), cfg)
+
+        def outer(v):
+            x, y, z = v.unbind(1)
+            return torch.stack([x * x, y * y, z * z, x * y, x * z, y * z,
+                                x, y, z], 1).contiguous()
+        shapes = {"normals": (p, cloud.mask, p, cloud.mask, outer(p),
+                              cfg.normals_radius),
+                  "frames": (spos, smask, cloud.points, cloud.mask,
+                             outer(n), cfg.nn_radius_frames),
+                  "frames_cem": (spos[:50].contiguous(),
+                                 smask[:50].contiguous(), cloud.points,
+                                 cloud.mask, outer(n), cfg.nn_radius_frames)}
+        for what, args in shapes.items():
+            query, qmask, points, pmask, feats, radius = args
+            r2 = float(np.float32(radius) * np.float32(radius))
+            outs = [nbr.radius_moments(*args) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                fail(f"radius_moments ({kind} {what}): two launches differ")
+            sums, counts = outs[0]
+            q64, p64 = query.double(), points.double()
+            c64, s64, edge = [], [], []
+            for i in range(0, query.shape[0], 1024):
+                d2 = ((q64[i:i + 1024, None] - p64[None]) ** 2).sum(-1)
+                live = pmask[None] & qmask[i:i + 1024, None]
+                m = ((d2 <= r2) & live).double()
+                c64.append(m.sum(1))
+                s64.append(m @ feats.double())
+                edge.append((((d2 - r2).abs() <= 1e-6 * r2) & live).sum(1))
+            c64, s64, edge = torch.cat(c64), torch.cat(s64), torch.cat(edge)
+            off = (counts.double() - c64).abs()
+            if bool((off > edge).any()):
+                fail(f"radius_moments ({kind} {what}): counts off float64 "
+                     f"beyond the boundary pairs")
+            same = off == 0
+            err = float((sums[same].double() - s64[same]).abs().max())
+            if not torch.allclose(sums[same].double(), s64[same], rtol=1e-5,
+                                  atol=1e-5):
+                fail(f"radius_moments ({kind} {what}): sums {err:.3e} off "
+                     f"float64")
+            ref_s, ref_c = nbr.radius_moments_ref(*args)
+            ref_same = ref_c.double() == c64
+            ref_err = float((ref_s[ref_same].double()
+                             - s64[ref_same]).abs().max())
+            *probed, judged, swept = nbr.radius_moments_probe(*args)
+            if not all(torch.equal(a, b) for a, b in zip(probed, outs[0])):
+                fail(f"radius_moments ({kind} {what}): the probe's sums "
+                     f"differ from the kernel's")
+            ms = cuda_ms(torch, nbr.radius_moments, args)
+            plain_ms = cuda_ms(torch, nbr.radius_moments_ref, args, iters=5,
+                               warmup=1)
+            Q, N, F = query.shape[0], points.shape[0], feats.shape[1]
+            # f32 flops, a fused multiply-add counted as two (as
+            # hand_search_ops): a pair's test (three differences, a
+            # product, two fused multiply-adds, the compare) and a
+            # member's F + 1 adds. The full sweep tests every live pair;
+            # the kernel tests 32 x 32 pairs in each group it sweeps.
+            pairs, members = int(qmask.sum()) * int(pmask.sum()), \
+                int(c64.sum())
+            n_ops = MOMENT_PAIR_FLOPS * pairs + (F + 1) * members
+            swept_ops = MOMENT_PAIR_FLOPS * swept * 1024 + (F + 1) * members
+            nbytes = Q * 13 + N * (13 + 4 * F) + Q * (F + 1) * 4
+            bound_ms, bound_by = bound(nbytes, n_ops)
+            swept_bound_ms, swept_by = bound(nbytes, swept_ops)
+            print(f"radius_moments ({kind} {what}, Q={Q}, N={N}, F={F}, "
+                  f"r={radius}): members {members} "
+                  f"({members / max(1, pairs):.2%} of live pairs); "
+                  f"boundary pairs {int(edge.sum())}; "
+                  f"queries off float64: kernel {int((~same).sum())}, plain "
+                  f"{int((~ref_same).sum())}; sums' gap to float64 "
+                  f"{err:.3e} (plain {ref_err:.3e}); groups swept {swept} "
+                  f"of {judged} (kernel's count); {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms; full-sweep bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {n_ops / 1e9:.3f} G flops), ms / bound_ms "
+                  f"= {ms / bound_ms:.2f}; swept bound {swept_bound_ms:.4f} "
+                  f"ms ({swept_by}: {swept_ops / 1e9:.3f} G flops), ms / "
+                  f"swept_bound_ms = {ms / swept_bound_ms:.2f}; plain / ms "
+                  f"= {plain_ms / ms:.1f}")
+            timings[f"{kind}_{what}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_ratio=ms / bound_ms,
+                swept_bound_ms=swept_bound_ms,
+                swept_bound_ratio=ms / swept_bound_ms,
+                groups_judged=judged, groups_swept=swept,
+                max_abs_err=err, plain_max_abs_err=ref_err,
+                queries_off_float64=int((~same).sum()), shape=[Q, N, F])
+        del cloud, shapes, p, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    head = timings.pop("table_normals")
+    return dict(name="radius_moments", route="cuda",
+                source="gpd_tpu_torch/csrc/radius_moments.cu",
+                replaces="none: gpd_tpu's radius_moments "
+                         "(gpd_tpu/ops/neighbors.py:176) is XLA",
+                **head, by_shape=timings,
+                note="no one PyTorch call computes the moments: no library "
+                     "yardstick")
 
 def check_raster_ragged(torch, img):
     """raster_blocks at the ragged shapes, Ks = K; returns the max |diff|."""
@@ -1234,9 +1371,12 @@ def selection_share(a, b):
 def kernel_family(name):
     """The FAMILIES entry of a profiler trace's kernel ``name``, or None:
     csrc/raster_blocks.cu's images kernel is raster_images', its sums
-    kernel raster_blocks'."""
+    kernel raster_blocks'; of csrc/radius_moments.cu's three kernels a
+    launch runs, its sweep stands for the launch."""
     if "raster_blocks_images" in name:
         return "raster_images"
+    if "radius_moments" in name:
+        return "radius_moments" if "radius_moments_kernel" in name else None
     return next((f for f in FAMILIES if f in name), None)
 
 
@@ -1280,7 +1420,8 @@ def captured_launches(*graphs):
     return {"raster_blocks": n["raster_blocks"],
             "raster_images": n["raster_images"],
             "raster_sums": n["raster_sums"] + n["raster_sums2"],
-            "hand_search": n["hand_search"]}
+            "hand_search": n["hand_search"],
+            "radius_moments": n["radius_moments"]}
 
 
 def cem_graphs(sis, cloud):
@@ -3955,6 +4096,24 @@ def hand_search_only(torch, card):
     print(json.dumps({"kernels": [entry]}))
 
 
+def radius_moments_only(torch, card):
+    """``python3 chip_smoke.py radius_moments``: the radius moments' check
+    and timing alone (phase 3's last check); prints its kernels-line entry
+    last."""
+    from gpd_tpu_torch import detector
+    from gpd_tpu_torch.detector import GraspDetector
+    from gpd_tpu_torch.ops import _build
+
+    for name, log in _build.build(["radius_moments"]).items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line or "stack" in line:
+                print(f"  {name}: {line.strip()}")
+    entry = check_radius_moments(torch, detector, GraspDetector)
+    print(card)
+    print(json.dumps({"kernels": [entry]}))
+
+
 def main():
     # One card: the first, unless the caller chose one.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -3977,6 +4136,8 @@ def main():
         return hand_search_only(torch, card)
     if sys.argv[1:2] == ["images"]:
         return images_only(torch, card)
+    if sys.argv[1:2] == ["radius_moments"]:
+        return radius_moments_only(torch, card)
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -3998,7 +4159,8 @@ def main():
 
     # The C ABI compiles against this Python's headers; without them the C
     # ABI phase prints one line instead of running.
-    libs = ["raster_blocks", "raster_sums", "hand_search", "pcd_ascii"]
+    libs = ["raster_blocks", "raster_sums", "hand_search", "radius_moments",
+            "pcd_ascii"]
     why_no_c_abi = None
     if _build.python_include() is None:
         why_no_c_abi = (f"this Python has no Python.h in "
@@ -4021,6 +4183,8 @@ def main():
     images15, images12 = check_images(torch, img)
     entries["hand_search"] = check_hand_search(torch, cand, detector,
                                                GraspDetector)
+    entries["radius_moments"] = check_radius_moments(torch, detector,
+                                                     GraspDetector)
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
@@ -4131,12 +4295,13 @@ def main():
     # runs in the kernel checks alone, and has no path.
     on_paths = {"raster_images": images15,
                 **{k: entries[k] for k in ("raster_sums", "raster_sums2",
-                                           "hand_search")}}
+                                           "hand_search", "radius_moments")}}
     images15["launches"] = launches15["raster_images"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
     entries["hand_search"]["launches"] = launches15["hand_search"]
+    entries["radius_moments"]["launches"] = launches15["radius_moments"]
     for name, e in on_paths.items():
         # A path that counted only the raster kernels is left out.
         e["launches_by_path"] = {path: launches[name]
@@ -4185,7 +4350,9 @@ def main():
             "launches", "max_abs_err", "unequal_share", "ms", "replaced_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_ratio",
             "launches_by_path", "staged_chunk", "pcd", "mismatches",
-            "members_max", "note")
+            "members_max", "plain_max_abs_err", "queries_off_float64",
+            "swept_bound_ms", "swept_bound_ratio", "groups_judged",
+            "groups_swept", "shape", "by_shape", "note")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in [*entries.values(), free,
                                             images15, images12]]}))

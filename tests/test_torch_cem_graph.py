@@ -118,24 +118,24 @@ def test_returned_grasps_survive_the_next_request():
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
     """The capture records each wrapper's launches into the graph: one
-    raster_images launch per round at one chunk a round and one hand_search
-    launch per round, none of the 3-channel kernels nor raster_blocks'
-    sums alone. A replay calls no wrapper, and a profiler trace of it
-    shows the card running the recorded launches (the images kernel's
-    name holds raster_blocks)."""
+    raster_images launch per round at one chunk a round, one hand_search
+    launch and one radius_moments launch (the frames) per round, none of
+    the 3-channel kernels nor raster_blocks' sums alone. A replay calls no
+    wrapper, and a profiler trace of it shows the card running the
+    recorded launches (the images kernel's name holds raster_blocks)."""
     needs_card()
     sis, cloud = scene_sis()
     sis.detect(cloud, generator=seeded(0), verbose=False)
     r, s = sis.graphs.values()
     rounds = 1 + CEM_KW["num_iterations"]
-    assert r.launches == {"hand_search": rounds}
+    assert r.launches == {"hand_search": rounds, "radius_moments": rounds}
     assert s.launches == {"raster_images": rounds}
     before = _build.LAUNCHES.copy()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         sis.detect(cloud, generator=seeded(1), verbose=False)
     assert _build.LAUNCHES == before
-    for name in ("raster_blocks", "hand_search"):
+    for name in ("raster_blocks", "hand_search", "radius_moments_kernel"):
         ran = [e for e in prof.events() if name in e.name
                and e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(ran) == rounds, name

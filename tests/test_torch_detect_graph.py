@@ -259,23 +259,26 @@ def test_returned_grasps_survive_the_next_request():
 
 @pytest.mark.cuda
 def test_replay_runs_the_captured_launches():
-    """The capture of A records its one hand_search launch, B's its
-    raster_images launches (one per live chunk), C's none. A replay calls
-    no wrapper, and a profiler trace of it shows the card running the
-    recorded launches (the images kernel's name holds raster_blocks)."""
+    """The capture of A records its one hand_search launch and its one
+    radius_moments launch (the frames), B's its raster_images launches
+    (one per live chunk), C's none. A replay calls no wrapper, and a
+    profiler trace of it shows the card running the recorded launches (the
+    images kernel's name holds raster_blocks)."""
     needs_card()
     det, cloud = table_detector()
     det.detect(cloud, generator=seeded(0), verbose=False)
     a, b, c = (det.graphs[k] for k in det.last_graphs)
     chunks = det.last_graphs[1][-2] // det.image_cap(1000)
-    assert a.launches == {"hand_search": 1} and c.launches == {}
+    assert a.launches == {"hand_search": 1, "radius_moments": 1}
+    assert c.launches == {}
     assert b.launches == {"raster_images": chunks} and chunks >= 1
     before = _build.LAUNCHES.copy()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         det.detect(cloud, generator=seeded(0), verbose=False)
     assert _build.LAUNCHES == before
-    for name, n in (("raster_blocks", chunks), ("hand_search", 1)):
+    for name, n in (("raster_blocks", chunks), ("hand_search", 1),
+                    ("radius_moments_kernel", 1)):
         ran = [e for e in prof.events() if name in e.name
                and e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(ran) == n, name

@@ -728,3 +728,244 @@ def test_hand_search_edge_cases_on_card(route):
         for key in SEARCH_OUTPUTS:
             if key != "R":
                 assert torch.equal(out[key][:, 3:], ref[key][:, 3:]), key
+
+
+# The radius moments (csrc/radius_moments.cu against radius_moments_ref).
+
+def normal_feats(points, mask):
+    """_normals_kernel's moments: the cloud centred on its centroid (masked
+    points at 1e6) and its nine features."""
+    w = mask.to(points.dtype)
+    centroid = (points * w[:, None]).sum(0) / w.sum().clamp(min=1.0)
+    p = torch.where(mask[:, None], points - centroid, 1.0e6)
+    return p.contiguous(), outer_feats(p)
+
+
+def outer_feats(v):
+    """(N, 9): the six products of v's coordinates, then v (the features of
+    both the normals and the frames)."""
+    x, y, z = v.unbind(1)
+    return torch.stack([x * x, y * y, z * z, x * y, x * z, y * z, x, y, z],
+                       dim=1).contiguous()
+
+
+def test_moments_wrapper_checks_and_cpu_dispatch():
+    """On the CPU the wrapper is radius_moments_ref bit for bit, float64
+    too, and launches nothing; it refuses operands the kernel does not
+    take."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    cloud, cfg, spos, smask = cylinder_cloud(num_samples=16)
+    points, mask = cloud.points, cloud.mask
+    feats = outer_feats(cloud.normals)
+    args = (spos, smask, points, mask, feats, cfg.nn_radius_frames)
+    before = _build.LAUNCHES["radius_moments"]
+    for a in (args, tuple(t.double() if torch.is_floating_point(t) else t
+                          for t in args[:5]) + args[5:]):
+        got = nbr.radius_moments(*a)
+        want = nbr.radius_moments_ref(*a)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert got[1].sum() > 0
+    assert _build.LAUNCHES["radius_moments"] == before   # no kernel on the CPU
+
+    def call(i, value):
+        a = list(args)
+        a[i] = value
+        nbr.radius_moments(*a)
+    bad = [(0, spos.double()),                      # dtypes differ
+           (0, spos[:, :2].contiguous()),           # shape
+           (1, smask.int()),                        # mask dtype
+           (1, smask[:-1]),
+           (3, mask[:-1]),
+           (4, feats[:-1]),
+           (4, feats[:, 0]),
+           (2, points.t().contiguous().t()),        # contiguity
+           (4, feats.t().contiguous().t()),
+           (0, spos.to("meta"))]                    # one device
+    for i, value in bad:
+        with pytest.raises(ValueError):
+            call(i, value)
+    with pytest.raises(ValueError):
+        nbr.radius_moments_probe(*args)            # the card's alone
+    assert _build.LAUNCHES["radius_moments"] == before
+
+
+def test_moment_splits_fill_the_card():
+    """The kernel's point partitions at the main path's shapes on 132 SMs:
+    query warps x partitions reach 32 warps an SM, at most 64 partitions
+    and one a 32-point group."""
+    from gpd_tpu_torch.ops.neighbors import moment_splits
+    for (q, n), want in {(14336, 14336): 10, (10240, 10240): 14,
+                         (8192, 8192): 17, (1000, 14336): 64,
+                         (50, 14336): 64, (1, 300): 10, (133, 2047): 64,
+                         (0, 0): 1}.items():
+        assert moment_splits(q, n, 132) == want, (q, n)
+
+
+def hold_moments(got, query, qmask, points, pmask, feats, radius, label):
+    """The kernel's (sums, counts) against float64 on the card: counts
+    equal except where a query has pairs within 1e-6 r^2 of the boundary
+    (by at most that many), sums within rtol = atol = 1e-5 of the float64
+    sums where the counts agree (the plain route's tolerance against brute
+    force), 0 where the query is masked. Against radius_moments_ref on the
+    card: the kernel's counts are off float64's on no more queries than
+    the plain route's (whose q^2 + p^2 - 2 q.p rounds farther from the
+    boundary). Prints both routes' counts and gaps."""
+    from gpd_tpu_torch.ops.neighbors import radius_moments_ref
+    torch.cuda.synchronize()
+    sums, counts = got
+    r2 = float(np.float32(radius) * np.float32(radius))
+    q64, p64, f64 = query.double(), points.double(), feats.double()
+    c64, s64, edge = [], [], []
+    for i in range(0, query.shape[0], 1024):
+        d2 = ((q64[i:i + 1024, None] - p64[None]) ** 2).sum(-1)
+        live = pmask[None] & qmask[i:i + 1024, None]
+        w = ((d2 <= r2) & live).double()
+        c64.append(w.sum(1))
+        s64.append(w @ f64)
+        edge.append((((d2 - r2).abs() <= 1e-6 * r2) & live).sum(1))
+    c64, s64, edge = torch.cat(c64), torch.cat(s64), torch.cat(edge)
+
+    def gap_of(s, c):
+        same = c.double() == c64
+        gap = float((s[same].double() - s64[same]).abs().max()) \
+            if same.any() else 0.0
+        return same, gap
+    off = (counts.double() - c64).abs()
+    assert bool((off <= edge).all()), label
+    same, gap = gap_of(sums, counts)
+    torch.testing.assert_close(sums[same].double(), s64[same], rtol=1e-5,
+                               atol=1e-5, msg=label)
+    assert bool((sums[~qmask] == 0).all() and (counts[~qmask] == 0).all())
+    ref_same, ref_gap = gap_of(*radius_moments_ref(query, qmask, points,
+                                                   pmask, feats, radius))
+    assert int((~same).sum()) <= int((~ref_same).sum()), label
+    print(f"radius_moments {label}: Q={query.shape[0]} N={points.shape[0]} "
+          f"members {int(c64.sum())}; pairs within 1e-6 r^2 of the boundary "
+          f"{int(edge.sum())}; queries whose count is off float64's: kernel "
+          f"{int((~same).sum())}, plain route {int((~ref_same).sum())}; "
+          f"sums' gap to float64 {gap:.3e} (plain route {ref_gap:.3e})")
+
+
+def moment_inputs(kind, Q, N, feats_of):
+    """(query, qmask, points, pmask, feats, radius) on the card: the first N
+    points of the benchmark's first ``kind`` cloud (lexicographic cell
+    order, its padding masked), the normals' or the frames' features and
+    radius, and as queries the points themselves (Q = N) or Q of them
+    drawn at random, every seventh masked."""
+    cloud, cfg = benchmark_cloud(kind)
+    points = cloud.points[:N].contiguous()
+    pmask = cloud.mask[:N].contiguous()
+    if feats_of == "normals":
+        points, feats = normal_feats(points, pmask)
+        radius = cfg.normals_radius
+    else:
+        feats = outer_feats(cloud.normals[:N])
+        radius = cfg.nn_radius_frames
+    if Q == N:
+        return points, pmask, points, pmask, feats, radius
+    gen = torch.Generator(device="cuda").manual_seed(Q)
+    pick = torch.randint(0, N, (Q,), generator=gen, device="cuda")
+    qmask = pmask[pick] & (torch.arange(Q, device="cuda") % 7 != 6)
+    return (points[pick].contiguous(), qmask.contiguous(), points, pmask,
+            feats, radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats_of", ["normals", "frames"])
+@pytest.mark.parametrize("kind,Q,N", [
+    ("table", 50, 14336), ("table", 1000, 14336), ("pcd", 8192, 8192),
+    ("table", 14336, 14336), ("table", 133, 2047), ("table", 1, 300)])
+def test_moments_kernel_matches_float64_on_card(kind, Q, N, feats_of):
+    """The kernel against float64 and radius_moments_ref on the benchmark's
+    clouds at the main path's shapes and off the tile sizes, twice (bit
+    for bit); one launch a call. Its probe, with and without culling,
+    gives the same sums bit for bit and counts every (query warp, point
+    group) pair of the live query warps as judged; without culling every
+    one is swept, and at Q = N culling skips at least half of them."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    needs_card()
+    args = moment_inputs(kind, Q, N, feats_of)
+    before = _build.LAUNCHES["radius_moments"]
+    got = nbr.radius_moments(*args)
+    again = nbr.radius_moments(*args)
+    assert _build.LAUNCHES["radius_moments"] == before + 2
+    hold_moments(got, *args, f"{kind} {feats_of}")
+    qmask = args[1]
+    pad = -Q % 32
+    warps = int(torch.nn.functional.pad(qmask, (0, pad)).view(-1, 32)
+                .any(1).sum())
+    pairs = warps * -(-N // 32)
+    *culled, judged, swept = nbr.radius_moments_probe(*args)
+    *full, judged_full, swept_full = nbr.radius_moments_probe(*args,
+                                                              cull=False)
+    assert judged == judged_full == swept_full == pairs
+    assert swept <= judged
+    if Q == N:
+        assert 2 * swept < judged, (swept, judged)
+    print(f"radius_moments {kind} {feats_of}: groups swept {swept} of "
+          f"{judged} ({1 - swept / max(1, judged):.1%} culled)")
+    for a, b, c, d in zip(got, again, culled, full):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+def test_moments_kernel_edge_cases_on_card():
+    """A query with no neighbour, masked queries, an all-masked cloud, no
+    query, and N below one group: against float64 and the plain route."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    needs_card()
+    rng = np.random.default_rng(4)
+    pts = torch.from_numpy((rng.random((700, 3)) * 0.1).astype(np.float32))
+    pts = pts.cuda()
+    feats = outer_feats(pts)
+    pmask = torch.from_numpy(rng.random(700) < 0.9).cuda()
+    query = pts[:37].clone()
+    query[5] += 10.0                                 # no neighbour
+    qmask = torch.ones(37, dtype=torch.bool, device="cuda")
+    qmask[[0, 9, 36]] = False
+    sums, counts = nbr.radius_moments(query, qmask, pts, pmask, feats, 0.02)
+    hold_moments((sums, counts), query, qmask, pts, pmask, feats, 0.02,
+                 "edge cases")
+    assert counts[5] == 0 and bool((sums[5] == 0).all())
+    assert bool((counts[qmask & (torch.arange(37, device="cuda") != 5)]
+                 > 0).all())
+    none = torch.zeros_like(pmask)
+    s0, c0 = nbr.radius_moments(query, qmask, pts, none, feats, 0.02)
+    assert not s0.any() and not c0.any()
+    s1, c1 = nbr.radius_moments(query, torch.zeros_like(qmask), pts, pmask,
+                                feats, 0.02)
+    assert not s1.any() and not c1.any()
+    s2, c2 = nbr.radius_moments(query[:0], qmask[:0], pts, pmask, feats,
+                                0.02)
+    assert s2.shape == (0, 9) and c2.shape == (0,)
+    few = (query, qmask, pts[:5].contiguous(), pmask[:5].contiguous(),
+           feats[:5].contiguous(), 0.5)
+    hold_moments(nbr.radius_moments(*few), *few, "N = 5")
+
+
+@pytest.mark.cuda
+def test_moments_kernel_replays_as_called_on_card():
+    """A CUDA graph of the wrapper records one launch and replays the
+    eager call's sums and counts bit for bit; the replay calls no
+    wrapper."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    needs_card()
+    args = moment_inputs("table", 14336, 14336, "normals")
+    eager = nbr.radius_moments(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nbr.radius_moments(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.LAUNCHES["radius_moments"]
+    with torch.cuda.graph(graph):
+        out = nbr.radius_moments(*args)
+    assert _build.LAUNCHES["radius_moments"] == before + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+    assert _build.LAUNCHES["radius_moments"] == before + 1
