@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gpd_tpu_torch import profiling
 from gpd_tpu_torch.config import ConfigFile
 from gpd_tpu_torch.core.types import CloudArrays
 from gpd_tpu_torch.detector import GraspDetector
@@ -90,6 +91,40 @@ def balance_instances(max_count: int, positives: np.ndarray,
     pos = rng.permutation(positives)[:n]
     neg = rng.permutation(negatives)[:n]
     return np.concatenate([pos, neg])
+
+
+# The columns of a hand in ``DataGenerator``'s packed float32 table, and
+# their widths.
+HAND_FIELDS = (("sample", 3), ("orientation", 9), ("top", 1),
+               ("finger_placement", 1), ("sample_id", 1), ("attempt", 1),
+               ("label", 1))
+_INT_FIELDS = ("finger_placement", "sample_id", "attempt", "label")
+
+
+def _hand_fields(table: torch.Tensor) -> dict:
+    """The packed (n, 17) float32 hands as a dict of (n, ...) tensors: the
+    rotation (n, 3, 3), the integer fields int64."""
+    out, col = {}, 0
+    for name, width in HAND_FIELDS:
+        v = table[:, col:col + width]
+        col += width
+        if name == "orientation":
+            v = v.reshape(-1, 3, 3)
+        elif width == 1:
+            v = v[:, 0]
+        out[name] = v.long() if name in _INT_FIELDS else v
+    return out
+
+
+def _on_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host. From a card it is copied into page-locked memory
+    from torch's caching host allocator, which serves a later copy of the
+    same size from the same pages once the caller has dropped the array: a
+    pageable copy of a view's rows (35-54 MB) faulted fresh pages in on
+    every view."""
+    if not t.is_cuda:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
 class HDF5ShardWriter:
@@ -228,6 +263,22 @@ class DataGenerator:
         self.detector = detector
         self.gen = gen_cfg
         self.last_counts = {}
+        # The last view's packed hand tables (``HAND_FIELDS``' columns):
+        # every attempt's valid candidates, and the kept rows.
+        self._candidates = self._rows = None
+
+    @property
+    def last_candidates(self) -> dict:
+        """The last view's valid candidates, every attempt's, as
+        ``_hand_fields``; empty before the first view."""
+        return {} if self._candidates is None else _hand_fields(
+            self._candidates)
+
+    @property
+    def last_rows(self) -> dict:
+        """The last view's kept rows in the returned order, as
+        ``_hand_fields``; empty before the first view."""
+        return {} if self._rows is None else _hand_fields(self._rows)
 
     def generate_view(self, view_cloud: CloudArrays, mesh_cloud: CloudArrays,
                       generator: torch.Generator,
@@ -236,60 +287,105 @@ class DataGenerator:
         cloud, ground-truth labels from the mesh cloud, balanced 50/50.
         Attempts repeat until ``min_grasps_per_view`` positives, at most 8,
         and stop after two in a row without a positive (the reference spins
-        on such views forever). The relabeling cap is the view cloud's
-        effective config, as in gpd_tpu (datagen.py:217). Returns (images
-        (N, s, s, C) uint8, labels (N,) int32); ``last_counts`` holds the
-        attempts, candidates and positives, and the detector's
-        ``last_graphs`` the keys the view replayed."""
+        on such views forever). Returns (images (N, s, s, C) uint8, labels
+        (N,) int32).
+
+        Afterwards ``last_counts`` holds the attempts, the valid candidates,
+        their positives, the rows kept and the mesh cloud's points;
+        ``last_candidates`` every attempt's valid candidates and
+        ``last_rows`` the kept rows, in the returned order, each a dict of
+        device tensors (``HAND_FIELDS``: the hand's sample, its rotation,
+        top, finger placement, sample index, attempt and label) unpacked
+        from the view's packed tables when read; and the
+        detector's ``last_graphs`` the keys the view replayed. The whole
+        unit is the span ``datagen_view``, each attempt ``datagen_attempt``
+        (holding detect's ``candidates``, ``candidates_read`` and ``score``,
+        then ``relabel``), and the balance and the copy of the kept rows
+        ``datagen_rows``."""
         det = self.detector
-        cfg = det.effective_config(view_cloud)
-        min_pos = self.gen.min_grasps_per_view
-        images_all: List[torch.Tensor] = []
-        labels_all: List[np.ndarray] = []
-        n_pos = 0
-        zero_streak = 0
-        det.programs.last_graphs = []
-        for _ in range(8):
-            labels, images = self._attempt(view_cloud, mesh_cloud, generator,
-                                           cfg)
-            labels_all.append(labels)
-            images_all.append(images)
-            got = int(labels.sum())
-            n_pos += got
-            zero_streak = zero_streak + 1 if got == 0 else 0
-            if n_pos >= min_pos or zero_streak >= 2:
-                break
-        labels = np.concatenate(labels_all)
-        self.last_counts = dict(attempts=len(labels_all),
-                                candidates=len(labels), positives=n_pos)
-        pos_idx = np.nonzero(labels == 1)[0]
-        neg_idx = np.nonzero(labels == 0)[0]
-        keep = balance_instances(self.gen.max_grasps_per_view, pos_idx,
-                                 neg_idx, rng)
-        keep = rng.permutation(keep)
-        images = torch.cat(images_all)
-        rows = torch.from_numpy(keep.astype(np.int64)).to(images.device)
-        return images[rows].cpu().numpy(), labels[keep]
+        with profiling.span("datagen_view"):
+            cfg = det.effective_config(view_cloud)
+            min_pos = self.gen.min_grasps_per_view
+            images_all: List[torch.Tensor] = []
+            labels_all: List[np.ndarray] = []
+            hands_all: List[torch.Tensor] = []
+            n_pos = 0
+            zero_streak = 0
+            det.programs.last_graphs = []
+            for attempt in range(8):
+                with profiling.span("datagen_attempt"):
+                    labels, images, hands = self._attempt(
+                        view_cloud, mesh_cloud, generator, cfg, attempt)
+                labels_all.append(labels)
+                images_all.append(images)
+                hands_all.append(hands)
+                got = int(labels.sum())
+                n_pos += got
+                zero_streak = zero_streak + 1 if got == 0 else 0
+                if n_pos >= min_pos or zero_streak >= 2:
+                    break
+            with profiling.span("datagen_rows"):
+                labels = np.concatenate(labels_all)
+                pos_idx = np.nonzero(labels == 1)[0]
+                neg_idx = np.nonzero(labels == 0)[0]
+                keep = balance_instances(self.gen.max_grasps_per_view,
+                                         pos_idx, neg_idx, rng)
+                keep = rng.permutation(keep)
+                # One attempt's images and hands are their own copies.
+                one = len(images_all) == 1
+                images = images_all[0] if one else torch.cat(images_all)
+                table = hands_all[0] if one else torch.cat(hands_all)
+                rows = torch.from_numpy(keep.astype(np.int64)).to(
+                    images.device)
+                self._candidates, self._rows = table, table[rows]
+                out = _on_host(images[rows]).numpy(), labels[keep]
+                self.last_counts = dict(
+                    attempts=len(labels_all), candidates=len(labels),
+                    positives=n_pos, kept=len(keep),
+                    mesh_points=int(mesh_cloud.mask.sum()))
+        return out
 
     def _attempt(self, view_cloud: CloudArrays, mesh_cloud: CloudArrays,
-                 generator: torch.Generator, cfg
-                 ) -> Tuple[np.ndarray, torch.Tensor]:
-        """One attempt: the valid candidates' labels on the host and their
-        images on the device (a copy). Candidates come valid-first, so both
-        are the valid prefix. R, the relabeling, is keyed by the hand
-        capacity, the mesh cloud's capacity and camera count and ``cfg``;
-        the candidates and the mesh are copied into its inputs, and it
-        draws nothing."""
+                 generator: torch.Generator, cfg, attempt: int = 0
+                 ) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor]:
+        """One attempt: the valid candidates' labels on the host, and on the
+        device (copies) their images and hands (``_hand_fields``' packed
+        columns, ``attempt`` as the attempt's). Candidates come
+        valid-first, so all three are the valid prefix. B's hands are
+        copied before R replays: a B captured after R may hold its outputs
+        in memory that R uses inside its replay (``graphs.CapturedGraph``).
+
+        R, the relabeling, runs in the span ``relabel`` with its read. It
+        searches the mesh cloud under the mesh's effective config: up to
+        ``search_identity_max`` every mesh point within the hand's radius,
+        as the reference's kd-tree radius search gives them, where the view
+        cloud's cap (gpd_tpu's, datagen.py:217) kept only the nearest
+        ``search_neighbors_cap`` of a mesh larger than the view. R is keyed
+        by the hand capacity, the mesh cloud's capacity and camera count and
+        that config; the candidates and the mesh are copied into its
+        inputs, and it draws nothing."""
         det = self.detector
         grasps, images, n_valid = det.candidates_with_images(
             view_cloud, generator, cfg)
-
-        labels = det.programs.run(
-            ("relabel", mesh_cloud.device, grasps.capacity,
-             mesh_cloud.capacity, mesh_cloud.num_cameras, cfg),
-            lambda _, mesh, g: cand.reevaluate_hypotheses(mesh, g, cfg)[0],
-            (mesh_cloud, grasps))
-        return labels[:n_valid].cpu().numpy(), images[:n_valid].clone()
+        g = grasps
+        hands = torch.cat([g.sample[:n_valid],
+                           g.orientation[:n_valid].reshape(-1, 9),
+                           g.top[:n_valid, None],
+                           g.finger_placement[:n_valid, None],
+                           g.sample_id[:n_valid, None],
+                           torch.full_like(g.top[:n_valid, None], attempt)],
+                          1)
+        images = images[:n_valid].clone()
+        rcfg = det.effective_config(mesh_cloud)
+        with profiling.span("relabel"):
+            labels = det.programs.run(
+                ("relabel", mesh_cloud.device, grasps.capacity,
+                 mesh_cloud.capacity, mesh_cloud.num_cameras, rcfg),
+                lambda _, mesh, g: cand.reevaluate_hypotheses(mesh, g,
+                                                              rcfg)[0],
+                (mesh_cloud, grasps))[:n_valid]
+            host = labels.cpu().numpy()
+        return host, images, torch.cat([hands, labels[:, None]], 1)
 
     def generate(self, items: Sequence[Tuple[str, int, CloudArrays, CloudArrays]],
                  writer_train: HDF5ShardWriter,

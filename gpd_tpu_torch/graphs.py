@@ -65,7 +65,8 @@ class CapturedGraph:
     other graph replays: detect's and CEM's selections and preprocess's
     cloud are cloned, each preprocess compaction copies its program's
     outputs to the host, a data-generation attempt clones its images and
-    copies its labels to the host, a training step's loss and accuracy are
+    hands before its relabelling replays and copies its labels to the host,
+    a training step's loss and accuracy are
     cloned. A later capture may so take memory that an earlier graph uses
     only inside its own replay, and the pool holds about one key's working
     set plus the outputs every graph keeps, not the sum of the working

@@ -39,6 +39,11 @@ so a request's spans are those nested in its ``detect``, with the
     train_upload        net.train.fit: a block's permutation, images, labels
     train_steps         net.train.fit: the loop over one block's steps
     train_eval          net.train.fit: each evaluate call (ends in a read)
+    datagen_view        DataGenerator.generate_view: one (object, view) unit
+      datagen_attempt     each attempt: detect's candidates, candidates_read
+                          and score (B with images), then
+        relabel             R's replay (or eager run) and the labels' read
+      datagen_rows        the balance, the gathers, the kept rows' copy
     cem_detect          SequentialImportanceSampling.detect: a CEM request
       cem_program         the fused route: R, S and the read (replays on a
                           card, eager runs on the CPU)

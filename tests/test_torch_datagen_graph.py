@@ -265,6 +265,40 @@ def test_graph_labels_equal_eager_labels(channels):
 
 
 @pytest.mark.cuda
+def test_graph_hands_equal_eager_hands():
+    """A second view, whose A and B are captured after the first view's R,
+    keeps the same hands and labels by the graph route as by the eager
+    attempt: B's hands are copied before R replays, so R's working memory,
+    which a later capture may share, does not reach them."""
+    needs_card()
+    gen, view, mesh = zoo_unit()
+    det = gen.detector
+    rng = np.random.default_rng(11)
+    (_, pts, nrm), = syn.object_zoo(1, seed=8)
+    cams = syn.view_cameras(rng, 2)
+    p, cs, vp = syn.render_fused_views(rng, pts, nrm, cams, occluded=False)
+    second = det.preprocess_cloud(p, view_points=vp, cam_source=cs,
+                                  capacity="serve")
+    g = torch.Generator(device="cuda")
+    gen.generate_view(view, mesh, g.manual_seed(0), np.random.default_rng(0))
+    relabel = [k for k in det.graphs if k[0] == "relabel"]
+    out = {}
+    for route in ("programs", "eager"):
+        det._force_eager = route == "eager"
+        _, labels = gen.generate_view(second, mesh, g.manual_seed(1),
+                                      np.random.default_rng(1))
+        out[route] = labels, {k: v.clone()
+                              for k, v in gen.last_candidates.items()}
+    det._force_eager = False
+    assert [k for k in det.graphs if k[0] == "relabel"] == relabel
+    (pl, pc), (el, ec) = out["programs"], out["eager"]
+    np.testing.assert_array_equal(pl, el)
+    assert len(pc["label"]) > 0 and set(pc) == set(ec)
+    assert all(torch.equal(pc[k], ec[k]) for k in pc), [
+        k for k in pc if not torch.equal(pc[k], ec[k])]
+
+
+@pytest.mark.cuda
 def test_datagen_b_keys_share_one_images_buffer():
     """Every B key with images of one shape writes into the detector's one
     images buffer, outside the graphs' pool: the images are not an output
