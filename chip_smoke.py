@@ -40,7 +40,13 @@ Phases; any failure exits non-zero and prints no result line:
      pairs within 1e-6 r^2 of the boundary, sums within 1e-5, twice bit
      for bit, each timed beside the plain route and two bounds (the full
      sweep's and that of the point groups its probe counts as swept;
-     ``python3 chip_smoke.py radius_moments`` runs this check alone);
+     ``python3 chip_smoke.py radius_moments`` runs this check alone).
+     Then outlier_knn, the outlier filter's mean distance to the 50
+     nearest, on two pcd_stream scenes' filter inputs (the 16384 and 8192
+     buckets): twice bit for bit, within 1e-5 of float64, the kept mask
+     equal to h100_bench's float64 filter, timed beside the plain route
+     and the two bounds (``python3 chip_smoke.py outlier_knn`` runs this
+     check alone);
   4. 15-channel path: GraspDetector.preprocess_cloud + detect at the default
      DetectorConfig (15 channels, 1000 samples, packaged LeNet weights) on
      synthetic two-camera table scenes, one warm-up and 3 scenes.
@@ -298,7 +304,7 @@ import numpy as np
 REQUESTS = 3
 # The kernel wrappers, each counting its launches under its own name.
 KERNELS = ("raster_blocks", "raster_images", "raster_sums", "raster_sums2",
-           "hand_search", "radius_moments")
+           "hand_search", "radius_moments", "outlier_knn")
 # Kernel families of a profiler trace: a wrapper's kernels by their names
 # (raster_sums2's kernels are raster_sums').
 FAMILIES = ("raster_blocks", "raster_images", "raster_sums", "hand_search",
@@ -825,6 +831,135 @@ def check_radius_moments(torch, detector, GraspDetector):
                 **head, by_shape=timings,
                 note="no one PyTorch call computes the moments: no library "
                      "yardstick")
+
+# f32 flops of one outlier_knn pair: three differences, a product, two
+# fused multiply-adds (two each) and the compare with the list's bound.
+KNN_PAIR_FLOPS = 9
+# The outlier filter's check: (label, pcd_stream scene seed, the serve
+# bucket its filter input fills): the traffic's first scene and its first
+# at the 8192 bucket.
+OUTLIER_SCENES = (("pcd scene 200", 200, 16384),
+                  ("pcd scene 211", 211, 8192))
+
+
+def outlier_inputs(seed):
+    """The outlier filter's input in the pcd cell for pcd_stream's scene
+    ``seed``: its points through the detector's first preprocess program
+    on the card (workspace filter, voxels), compacted to the serve bucket,
+    as preprocess_cloud hands them over. Returns (points, mask)."""
+    from gpd_tpu_torch import detector
+    from gpd_tpu_torch.core.types import CloudArrays
+    from h100_bench.inputs import generate
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "h100_bench")
+    with open(os.path.join(root, "traffic", "pcd_stream.json")) as f:
+        mix = dict(json.load(f), scene_seeds=[seed])
+    with open(os.path.join(root, "configs", "gpd3.json")) as f:
+        spec = json.load(f)["detector"]
+    (pts,) = generate.single_camera_scenes(mix)
+    cam = np.asarray(spec["camera_position"], np.float32).reshape(1, 3)
+    cloud = CloudArrays.from_numpy(
+        pts, view_points=cam, capacity=detector.serve_capacity(len(pts)),
+        device="cuda")
+    cloud = detector._prep_filter_voxel(cloud, tuple(spec["workspace"]),
+                                        spec["voxel_size"], True)
+    cloud = cloud.compact_host(detector.serve_capacity(int(cloud.mask.sum())))
+    return cloud.points, cloud.mask
+
+
+def check_outlier_knn(torch):
+    """outlier_knn (the outlier filter's mean distance to the 50 nearest)
+    on two pcd_stream filter inputs, the 16384 and 8192 buckets (Q = N):
+    twice bit for bit, the means within 1e-5 (relative) of float64's, the
+    filter's kept mask equal to h100_bench's float64
+    StatisticalOutlierRemoval; the probe (outlier_knn_probe) gives the
+    same means bit for bit and counts the (query, point group) pairs it
+    judged and swept. Then the kernel and the plain route (outlier_knn_ref
+    on the card) timed beside two operations bounds: the full sweep's
+    (every live pair tested) and the swept groups' (32 pair tests each).
+    Returns the kernels-line entry: the first scene's, the other under
+    ``by_shape``."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    from gpd_tpu_torch.ops import preprocess as pp
+    from h100_bench.reference.gpd import outlier_mask
+    timings = {}
+    for label, seed, capacity in OUTLIER_SCENES:
+        points, mask = outlier_inputs(seed)
+        if points.shape[0] != capacity:
+            fail(f"outlier_knn: the {label} filter input has capacity "
+                 f"{points.shape[0]}, not {capacity}")
+        args = (points, mask, 50)
+        outs = [nbr.outlier_knn(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(*outs):
+            fail(f"outlier_knn ({label}): two launches differ")
+        live = points[mask].double()
+        d64 = torch.cat([torch.cdist(
+            live[i:i + 1024], live,
+            compute_mode="donot_use_mm_for_euclid_dist").sort(1).values[
+                :, 1:51].mean(1) for i in range(0, len(live), 1024)])
+
+        def rel_err(mean_d):
+            return float(((mean_d[mask].double() - d64).abs() / d64).max())
+        err, plain = rel_err(outs[0]), nbr.outlier_knn_ref(*args)
+        plain_err = rel_err(plain)
+        if err > 1e-5:
+            fail(f"outlier_knn ({label}): means {err:.3e} off float64")
+        want = outlier_mask(live)
+        keep = pp._outlier_mask(*args, 1.0)
+        off = int((keep[mask] != want).sum())
+        if off or bool(keep[~mask].any()):
+            fail(f"outlier_knn ({label}): the kept mask differs from "
+                 f"float64's at {off} points")
+        n = mask.sum()
+        mu = torch.where(mask, plain, 0.0).sum() / n
+        sd = torch.sqrt(torch.where(mask, (plain - mu) ** 2, 0.0).sum() / n)
+        plain_off = int(((plain <= mu + sd)[mask] != want).sum())
+        probed, judged, swept, bound_d2 = nbr.outlier_knn_probe(*args)
+        if not torch.equal(probed, outs[0]):
+            fail(f"outlier_knn ({label}): the probe's means differ from "
+                 f"the kernel's")
+        ms = cuda_ms(torch, nbr.outlier_knn, args)
+        plain_ms = cuda_ms(torch, nbr.outlier_knn_ref, args, iters=5,
+                           warmup=1)
+        n_live, groups = int(n), -(-capacity // 32)
+        n_ops = KNN_PAIR_FLOPS * n_live * n_live
+        swept_ops = KNN_PAIR_FLOPS * swept * 32
+        nbytes = capacity * (12 + 1 + 4)
+        bound_ms, bound_by = bound(nbytes, n_ops)
+        swept_bound_ms, swept_by = bound(nbytes, swept_ops)
+        share = swept / (n_live * groups)
+        print(f"outlier_knn ({label}, Q = N = {capacity}, {n_live} live, "
+              f"mean_k 50): kept {int(want.sum())}, mask equal to "
+              f"float64's (plain route off at {plain_off} points); means' "
+              f"relative gap to float64 {err:.3e} (plain {plain_err:.3e}); "
+              f"groups swept {swept} of {n_live * groups} pairs ({share:.2%}"
+              f"; {judged} judged), mean bound {bound_d2:.3e} m^2; "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; full-sweep bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_ops / 1e9:.3f} G flops), "
+              f"ms / bound_ms = {ms / bound_ms:.2f}; swept bound "
+              f"{swept_bound_ms:.4f} ms ({swept_by}), ms / swept_bound_ms "
+              f"= {ms / swept_bound_ms:.2f}; plain / ms = "
+              f"{plain_ms / ms:.1f}")
+        timings[label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_ratio=ms / bound_ms, swept_bound_ms=swept_bound_ms,
+            swept_bound_ratio=ms / swept_bound_ms, groups_judged=judged,
+            groups_swept=swept, swept_share=share, mean_bound=bound_d2,
+            max_abs_err=err, plain_max_abs_err=plain_err,
+            shape=[capacity, n_live])
+        del points, mask, outs, plain, live, d64
+        gc.collect()
+        torch.cuda.empty_cache()
+    head = timings.pop(OUTLIER_SCENES[0][0])
+    return dict(name="outlier_knn", route="cuda",
+                source="gpd_tpu_torch/csrc/outlier_knn.cu",
+                replaces="none: gpd_tpu's _outlier_kernel "
+                         "(gpd_tpu/ops/preprocess.py:102) is XLA",
+                **head, by_shape=timings,
+                note="no one PyTorch call computes the filter's means: no "
+                     "library yardstick; max_abs_err is relative")
+
 
 def check_raster_ragged(torch, img):
     """raster_blocks at the ragged shapes, Ks = K; returns the max |diff|."""
@@ -4114,6 +4249,22 @@ def radius_moments_only(torch, card):
     print(json.dumps({"kernels": [entry]}))
 
 
+def outlier_knn_only(torch, card):
+    """``python3 chip_smoke.py outlier_knn``: the outlier filter's check
+    and timing alone (phase 3's last check); prints its kernels-line entry
+    last."""
+    from gpd_tpu_torch.ops import _build
+
+    for name, log in _build.build(["outlier_knn"]).items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line or "stack" in line:
+                print(f"  {name}: {line.strip()}")
+    entry = check_outlier_knn(torch)
+    print(card)
+    print(json.dumps({"kernels": [entry]}))
+
+
 def main():
     # One card: the first, unless the caller chose one.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -4138,6 +4289,8 @@ def main():
         return images_only(torch, card)
     if sys.argv[1:2] == ["radius_moments"]:
         return radius_moments_only(torch, card)
+    if sys.argv[1:2] == ["outlier_knn"]:
+        return outlier_knn_only(torch, card)
     from gpd_tpu_torch import api, capi, cem, datagen, detector, profiling
     from gpd_tpu_torch import viz
     from gpd_tpu_torch.apps import cem_detect_grasps, convert_weights
@@ -4160,7 +4313,7 @@ def main():
     # The C ABI compiles against this Python's headers; without them the C
     # ABI phase prints one line instead of running.
     libs = ["raster_blocks", "raster_sums", "hand_search", "radius_moments",
-            "pcd_ascii"]
+            "outlier_knn", "pcd_ascii"]
     why_no_c_abi = None
     if _build.python_include() is None:
         why_no_c_abi = (f"this Python has no Python.h in "
@@ -4185,6 +4338,7 @@ def main():
                                                GraspDetector)
     entries["radius_moments"] = check_radius_moments(torch, detector,
                                                      GraspDetector)
+    entries["outlier_knn"] = check_outlier_knn(torch)
 
     torch.cuda.reset_peak_memory_stats()
     det = GraspDetector(DetectorConfig(), device="cuda")
@@ -4295,13 +4449,15 @@ def main():
     # runs in the kernel checks alone, and has no path.
     on_paths = {"raster_images": images15,
                 **{k: entries[k] for k in ("raster_sums", "raster_sums2",
-                                           "hand_search", "radius_moments")}}
+                                           "hand_search", "radius_moments",
+                                           "outlier_knn")}}
     images15["launches"] = launches15["raster_images"]
     entries["raster_sums"]["launches"] = launches3["raster_sums"]
     entries["raster_sums2"]["launches"] = (launches15["raster_sums2"]
                                            + launches3["raster_sums2"])
     entries["hand_search"]["launches"] = launches15["hand_search"]
     entries["radius_moments"]["launches"] = launches15["radius_moments"]
+    entries["outlier_knn"]["launches"] = launches3["outlier_knn"]
     for name, e in on_paths.items():
         # A path that counted only the raster kernels is left out.
         e["launches_by_path"] = {path: launches[name]
@@ -4352,7 +4508,8 @@ def main():
             "launches_by_path", "staged_chunk", "pcd", "mismatches",
             "members_max", "plain_max_abs_err", "queries_off_float64",
             "swept_bound_ms", "swept_bound_ratio", "groups_judged",
-            "groups_swept", "shape", "by_shape", "note")
+            "groups_swept", "swept_share", "mean_bound", "shape", "by_shape",
+            "note")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in [*entries.values(), free,
                                             images15, images12]]}))

@@ -26,6 +26,8 @@ leaves the order of their indices open; the stable order is
 as one hand-written kernel, csrc/radius_moments.cu, which writes no (Q, N)
 tensor and takes d2 as the direct difference |q - p|^2;
 ``radius_moments_ref`` keeps the dense route above for CPU tensors.
+``outlier_knn`` (the outlier filter's mean distance to the k nearest) does
+the same with csrc/outlier_knn.cu and ``outlier_knn_ref``.
 """
 
 from __future__ import annotations
@@ -316,6 +318,137 @@ def radius_moments(query: torch.Tensor, query_mask: torch.Tensor,
                          f"{feats.shape[1]}")
     return _radius_moments_cuda(query, query_mask, points, points_mask,
                                 feats, radius)
+
+
+def outlier_knn_ref(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
+                    block: int = 1024) -> torch.Tensor:
+    """outlier_knn's plain version, the route of CPU tensors (gpd_tpu's
+    ``_outlier_kernel`` body, gpd_tpu/ops/preprocess.py:102-130): queries
+    in blocks of ``block`` rows, each a (B, N) ``_dist2`` matrix with
+    masked pairs at 1e12, its ``mean_k + 1`` smallest values (at most N),
+    the smallest (self) dropped, the rest below 1e11 averaged."""
+    k1 = min(mean_k + 1, points.shape[0])
+
+    def mean_dist(bq, bm):
+        d2 = _dist2(bq, points)
+        d2 = torch.where(mask[None, :] & bm[:, None], d2, _BIG)
+        d2k = torch.topk(d2, k1, dim=1, largest=False,
+                         sorted=True).values[:, 1:]     # [0] is self
+        v_k = d2k < 1e11
+        d_k = torch.sqrt(torch.clamp(d2k, min=0.0))
+        return torch.sum(torch.where(v_k, d_k, 0.0), dim=1) / \
+            torch.clamp(torch.sum(v_k, dim=1), min=1)
+
+    return torch.cat([mean_dist(points[i:i + block], mask[i:i + block])
+                      for i in range(0, points.shape[0], block)])
+
+
+# The most neighbours (mean_k + 1, self included) the outlier kernel keeps
+# a point (csrc/outlier_knn.cu, kMaxKept: two list slots a lane).
+KNN_MAX_KEPT = 64
+_KNN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+
+
+def _check_knn_operands(points, mask, mean_k):
+    N = points.shape[0]
+    if points.dim() != 2 or points.shape != (N, 3) or \
+            not points.is_floating_point():
+        raise ValueError(f"points must be floating (N, 3), got "
+                         f"{points.dtype} {tuple(points.shape)}")
+    if mask.dtype != torch.bool or mask.shape != (N,):
+        raise ValueError(f"mask must be bool ({N},), got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if mask.device != points.device:
+        raise ValueError("outlier_knn operands must lie on one device")
+    if isinstance(mean_k, bool) or not isinstance(mean_k, int) or mean_k < 0:
+        raise ValueError(f"mean_k must be an int >= 0, not {mean_k!r}")
+
+
+def _outlier_knn_cuda(points, mask, mean_k: int, probe=None):
+    """One launch of csrc/outlier_knn.cu (its packing and boxes, then the
+    sweep); ``probe``, a ``(cull, counts, bound_sum)`` triple, launches its
+    probe (``outlier_knn_probe``) instead."""
+    N, dev = points.shape[0], points.device
+    G = max(1, -(-N // 32))
+    packed = torch.empty((G * 32, 4), dtype=torch.float32, device=dev)
+    boxes = torch.empty((G, 2, 4), dtype=torch.float32, device=dev)
+    spans = torch.empty((-(-G // 32), 2, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    args = (points.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+            boxes.data_ptr(), spans.data_ptr(), out.data_ptr(), N,
+            mean_k + 1)
+    if probe is None:
+        _build.launch("outlier_knn", "outlier_knn", "outlier_knn_launch",
+                      _KNN_ARGTYPES, dev, *args)
+    else:
+        cull, counts, bound_sum = probe
+        _build.launch("outlier_knn_probe", "outlier_knn",
+                      "outlier_knn_probe_launch",
+                      _KNN_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+                      dev, *args, int(cull), counts.data_ptr(),
+                      bound_sum.data_ptr())
+    return out
+
+
+def _check_knn_cuda(points, mask, mean_k):
+    if not (points.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("the outlier_knn kernel takes contiguous operands")
+    if points.dtype != torch.float32:
+        raise ValueError(f"the outlier_knn kernel takes float32, not "
+                         f"{points.dtype}")
+    if mean_k + 1 > KNN_MAX_KEPT:
+        raise ValueError(f"the outlier_knn kernel keeps at most "
+                         f"{KNN_MAX_KEPT} neighbours (mean_k + 1), not "
+                         f"{mean_k + 1}")
+
+
+def outlier_knn_probe(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
+                      cull: bool = True):
+    """The kernel's sweep compiled with counts, for tests and measurements
+    on a card: ``(mean_d, judged, swept, mean_bound)``, where ``mean_d`` is
+    ``outlier_knn``'s bit for bit, ``judged`` and ``swept`` count the
+    (query, 32-point group) pairs whose group box was tested and that were
+    swept, and ``mean_bound`` is the mean over the live queries with
+    ``mean_k + 1`` live points of their final bound, the (mean_k + 1)-th
+    smallest squared distance (None where there is none). ``cull`` False
+    sweeps every group. Counted in ``_build.LAUNCHES`` as
+    ``outlier_knn_probe``."""
+    _check_knn_operands(points, mask, mean_k)
+    if points.device.type != "cuda":
+        raise ValueError("outlier_knn_probe takes CUDA tensors")
+    _check_knn_cuda(points, mask, mean_k)
+    counts = torch.zeros(3, dtype=torch.int64, device=points.device)
+    bound_sum = torch.zeros(1, dtype=torch.float64, device=points.device)
+    mean_d = _outlier_knn_cuda(points, mask, mean_k,
+                               probe=(cull, counts, bound_sum))
+    judged, swept, filled = counts.tolist()
+    mean_bound = bound_sum.item() / filled if filled else None
+    return mean_d, judged, swept, mean_bound
+
+
+def outlier_knn(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
+                block: int = 1024) -> torch.Tensor:
+    """Each unmasked point's mean Euclidean distance to its ``mean_k``
+    nearest other unmasked points (PCL's StatisticalOutlierRemoval
+    statistic, cloud.cpp:166-174): the ``mean_k + 1`` smallest squared
+    distances, the smallest (self) dropped; a point with fewer live
+    neighbours averages over those it has; 0 where masked. Returns (N,).
+
+    CUDA tensors (float32, ``mean_k + 1 <= KNN_MAX_KEPT``) launch the
+    kernel in csrc/outlier_knn.cu (built at first use; its header notes
+    the bound on the H100 and the design): no (N, N) tensor, d2 as the
+    direct difference |q - p|^2, the kept distances added in ascending
+    order. CPU tensors take ``outlier_knn_ref``, in blocks of ``block``
+    queries.
+    """
+    _check_knn_operands(points, mask, mean_k)
+    if points.device.type == "cpu":
+        return outlier_knn_ref(points, mask, mean_k, block)
+    if points.device.type != "cuda":
+        raise ValueError(f"outlier_knn runs on cuda or cpu, not "
+                         f"{points.device}")
+    _check_knn_cuda(points, mask, mean_k)
+    return _outlier_knn_cuda(points, mask, mean_k)
 
 
 def gather_neighborhoods(idx: torch.Tensor, valid: torch.Tensor, *arrays):

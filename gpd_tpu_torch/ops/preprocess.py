@@ -13,7 +13,7 @@ import torch
 from gpd_tpu_torch import constant
 from gpd_tpu_torch.core.types import PAD_COORD, CloudArrays
 from gpd_tpu_torch.ops import draws
-from gpd_tpu_torch.ops.neighbors import _dist2
+from gpd_tpu_torch.ops.neighbors import outlier_knn
 
 
 def remove_nans(cloud: CloudArrays) -> CloudArrays:
@@ -102,21 +102,10 @@ def voxelize(cloud: CloudArrays, cell_size: float) -> CloudArrays:
 
 def _outlier_mask(points, mask, mean_k: int, stddev_mult: float,
                   block: int = 1024):
-    # Mean distance to the mean_k nearest neighbors (self excluded) from the
-    # values of a blocked distance matmul's exact k smallest: no index
-    # gather.
-    def mean_dist(bq, bm):
-        d2 = _dist2(bq, points)
-        d2 = torch.where(mask[None, :] & bm[:, None], d2, 1e12)
-        d2k = torch.topk(d2, mean_k + 1, dim=1, largest=False,
-                         sorted=True).values[:, 1:]     # [0] is self
-        v_k = d2k < 1e11
-        d_k = torch.sqrt(torch.clamp(d2k, min=0.0))
-        return torch.sum(torch.where(v_k, d_k, 0.0), dim=1) / \
-            torch.clamp(torch.sum(v_k, dim=1), min=1)
-
-    mean_d = torch.cat([mean_dist(points[i:i + block], mask[i:i + block])
-                        for i in range(0, points.shape[0], block)])
+    # Mean distance to the mean_k nearest neighbors (self excluded): on a
+    # card one kernel, csrc/outlier_knn.cu; on the CPU the values of a
+    # blocked distance matmul's exact k smallest, no index gather.
+    mean_d = outlier_knn(points, mask, mean_k, block)
     n = torch.clamp(mask.sum(), min=1)
     mu = torch.sum(torch.where(mask, mean_d, 0.0)) / n
     var = torch.sum(torch.where(mask, (mean_d - mu) ** 2, 0.0)) / n
@@ -127,7 +116,8 @@ def remove_statistical_outliers(cloud: CloudArrays, mean_k: int = 50,
                                 stddev_mult: float = 1.0) -> CloudArrays:
     """PCL StatisticalOutlierRemoval (cloud.cpp:166-174): drop points whose
     mean distance to their mean_k nearest neighbors exceeds the global mean
-    + stddev_mult * stddev. Needs capacity > mean_k."""
+    + stddev_mult * stddev; a point with fewer than mean_k live neighbors
+    averages over those it has."""
     return _apply_mask(cloud, _outlier_mask(cloud.points, cloud.mask, mean_k,
                                             stddev_mult))
 

@@ -969,3 +969,344 @@ def test_moments_kernel_replays_as_called_on_card():
         for a, b in zip(out, eager):
             assert torch.equal(a, b)
     assert _build.LAUNCHES["radius_moments"] == before + 1
+
+
+# The outlier filter's nearest distances (csrc/outlier_knn.cu against
+# outlier_knn_ref, the float64 reference and a plain emulation).
+
+def stray_cloud(rng, n=400, strays=20):
+    """A jittered 3 mm grid patch of ``n - strays`` points, bent into a
+    ridge, and ``strays`` points scattered 2-5 cm above it: the filter's
+    work on a small scale. float32 (n, 3), in lexicographic order."""
+    side = int(np.ceil(np.sqrt(n - strays)))
+    g = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                             indexing="ij"), -1).reshape(-1, 2)[:n - strays]
+    xy = g * 0.003 + rng.normal(0, 3e-4, (len(g), 2))
+    z = 0.2 * np.abs(xy[:, 0] - xy[:, 0].mean())
+    surface = np.column_stack([xy, z])
+    lo, hi = surface.min(0), surface.max(0)
+    stray = lo + rng.random((strays, 3)) * (hi - lo)
+    stray[:, 2] += rng.uniform(0.02, 0.05, strays)
+    pts = np.concatenate([surface, stray]).astype(np.float32)
+    return pts[np.lexsort((pts[:, 2], pts[:, 1], pts[:, 0]))]
+
+
+def outlier_case(case, seed=0):
+    """(points, mask, mean_k) on the CPU for the filter's edge cases:
+    ``duplicates`` (every fifth point twice, so equal distances straddle
+    the list's edge), ``few_live`` (30 live points at capacity 64, fewer
+    than mean_k + 1), ``masked_rows`` (400 live points among 512 rows, the
+    masked ones at coordinates inside the cloud)."""
+    rng = np.random.default_rng(seed)
+    pts = stray_cloud(rng)
+    if case == "duplicates":
+        pts = np.concatenate([pts, pts[::5]])
+        pts = pts[np.lexsort((pts[:, 2], pts[:, 1], pts[:, 0]))]
+        mask = np.ones(len(pts), bool)
+    elif case == "few_live":
+        live = pts[rng.choice(len(pts), 30, replace=False)]
+        pts = np.full((64, 3), 1.0e6, np.float32)
+        pts[:30] = live
+        mask = np.arange(64) < 30
+    else:
+        rows = np.sort(rng.choice(512, len(pts), replace=False))
+        full = pts[rng.integers(0, len(pts), 512)].copy()
+        full[rows] = pts
+        pts, mask = full, np.zeros(512, bool)
+        mask[rows] = True
+    return torch.from_numpy(pts), torch.from_numpy(mask), 50
+
+
+def reference_keep(points, mask, mean_k):
+    """h100_bench's float64 StatisticalOutlierRemoval over the live points,
+    with mean_k cut to the others there are (every live point then
+    averages over all of them, as the port does)."""
+    from h100_bench.reference.gpd import outlier_mask
+    live = points[mask].double()
+    return outlier_mask(live, min(mean_k, len(live) - 1))
+
+
+def test_outlier_knn_wrapper_checks_and_cpu_dispatch():
+    """On the CPU the wrapper is outlier_knn_ref bit for bit, float64 too,
+    and launches nothing; it refuses operands the kernel does not take,
+    and the kernel's own checks refuse float64, strided operands and
+    mean_k + 1 above KNN_MAX_KEPT."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    points, mask, mean_k = outlier_case("masked_rows")
+    before = (_build.LAUNCHES["outlier_knn"],
+              _build.LAUNCHES["outlier_knn_probe"])
+    for p in (points, points.double()):
+        got = nbr.outlier_knn(p, mask, mean_k)
+        assert torch.equal(got, nbr.outlier_knn_ref(p, mask, mean_k))
+        assert got.dtype == p.dtype and got.shape == mask.shape
+        assert bool((got[~mask] == 0).all() and (got[mask] > 0).all())
+    assert (_build.LAUNCHES["outlier_knn"],
+            _build.LAUNCHES["outlier_knn_probe"]) == before
+    bad = [(points[:, :2].contiguous(), mask, mean_k),   # shape
+           (points.int(), mask, mean_k),                  # dtype
+           (points, mask.int(), mean_k),                  # mask dtype
+           (points, mask[:-1], mean_k),                   # mask length
+           (points, mask.to("meta"), mean_k),             # one device
+           (points.to("meta"), mask.to("meta"), mean_k),  # cuda or cpu
+           (points, mask, -1),
+           (points, mask, 2.0),
+           (points, mask, True)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            nbr.outlier_knn(*args)
+    with pytest.raises(ValueError):
+        nbr.outlier_knn_probe(points, mask, mean_k)     # the card's alone
+    nbr._check_knn_cuda(points, mask, nbr.KNN_MAX_KEPT - 1)
+    for args in [(points, mask, nbr.KNN_MAX_KEPT),     # list too long
+                 (points.double(), mask, mean_k),
+                 (points.t().contiguous().t(), mask, mean_k)]:
+        with pytest.raises(ValueError):
+            nbr._check_knn_cuda(*args)
+    assert (_build.LAUNCHES["outlier_knn"],
+            _build.LAUNCHES["outlier_knn_probe"]) == before
+
+
+@pytest.mark.parametrize("case", ["duplicates", "few_live", "masked_rows"])
+def test_outlier_plain_route_edge_cases_match_float64(case):
+    """The CPU route of the outlier filter (remove_statistical_outliers'
+    mask) keeps the float64 reference's points on duplicates, on fewer
+    than mean_k + 1 live points and among masked rows; masked rows are
+    never kept."""
+    from gpd_tpu_torch.ops import preprocess as pp
+    points, mask, mean_k = outlier_case(case)
+    keep = pp._outlier_mask(points, mask, mean_k, 1.0)
+    want = reference_keep(points, mask, mean_k)
+    assert not bool(keep[~mask].any())
+    assert torch.equal(keep[mask], want), int((keep[mask] != want).sum())
+    assert 0 < int(want.sum()) < len(want)
+
+
+def fma32(a, b, c):
+    """fl32(a * b + c) for float32 a, b, c, rounded once as a fused
+    multiply-add: the float64 product is exact, the sum's error comes from
+    TwoSum, and rounding to odd in float64 (53 bits >= 24 + 2) then to
+    nearest in float32 rounds the exact value once."""
+    import math
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)          # s + err == p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def knn_emulation(points, mask, mean_k, rows=None, block=256):
+    """The kernel's mean distances in plain PyTorch, in its arithmetic, at
+    the query rows ``rows`` (all by default): d2 = fma(dz, dz, fma(dy, dy,
+    dx * dx)) in float32, the mean_k + 1 smallest over live points, the
+    smallest dropped, the rest square-rooted (correctly rounded, through
+    float64), added in ascending order in float32 and divided by their
+    count (through float64); 0 for a masked row."""
+    rows = torch.arange(points.shape[0], device=points.device) \
+        if rows is None else rows
+    k1 = mean_k + 1
+    out = []
+    for i in range(0, len(rows), block):
+        r = rows[i:i + block]
+        d = [points[r, a, None] - points[None, :, a] for a in range(3)]
+        d2 = fma32(d[2], d[2], fma32(d[1], d[1], d[0] * d[0]))
+        d2 = torch.where(mask[None, :], d2, torch.inf)
+        kept = torch.sort(d2, dim=1).values[:, 1:k1]
+        valid = kept < torch.inf
+        root = torch.sqrt(kept.double()).float()
+        s = torch.zeros(len(r), dtype=torch.float32, device=points.device)
+        for j in range(kept.shape[1]):
+            s = torch.where(valid[:, j], s + root[:, j], s)
+        c = valid.sum(1).clamp(min=1)
+        mean = (s.double() / c.double()).float()
+        out.append(torch.where(mask[r], mean, 0.0))
+    return torch.cat(out)
+
+
+def test_knn_emulation_rounds_fused_multiply_adds_once():
+    """fma32 against exact rational arithmetic on float32 operands whose
+    products and sums need more than float64's 53 bits, and the
+    emulation's means against a direct sort of the distances."""
+    from fractions import Fraction
+    rng = np.random.default_rng(3)
+    a, b = (rng.random(200) * 2 - 1).astype(np.float32), \
+        (rng.random(200) * 2 - 1).astype(np.float32)
+    c = ((rng.random(200) * 2 - 1) * 10.0 ** rng.integers(-12, 3, 200)
+         ).astype(np.float32)
+    got = fma32(*map(torch.from_numpy, (a, b, c))).numpy()
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.int32))
+                                         & 1))
+        assert g == best, (x, y, z, g, best)
+    points, mask, mean_k = outlier_case("masked_rows")
+    emu = knn_emulation(points, mask, mean_k)
+    ref = torch.zeros_like(emu)
+    live = points[mask].double()
+    d = torch.cdist(live, live).sort(1).values[:, 1:mean_k + 1]
+    ref[mask] = d.mean(1).float()
+    torch.testing.assert_close(emu, ref, rtol=1e-5, atol=1e-7)
+
+
+def pcd_filter_inputs(seeds):
+    """The benchmark's pcd scenes at the scene seeds ``seeds``, through the
+    detector's first preprocess program on the card (the workspace filter,
+    the voxels) and compacted to the serve bucket: what the outlier
+    filter takes in the pcd cell."""
+    from gpd_tpu_torch.core.types import CloudArrays
+    from h100_bench.inputs import generate
+    root = os.path.join(os.path.dirname(__file__), os.pardir, "h100_bench")
+    with open(os.path.join(root, "traffic", "pcd_stream.json")) as f:
+        mix = dict(json.load(f), scene_seeds=list(seeds))
+    with open(os.path.join(root, "configs", "gpd3.json")) as f:
+        spec = json.load(f)["detector"]
+    cam = np.asarray(spec["camera_position"], np.float32).reshape(1, 3)
+    for pts in generate.single_camera_scenes(mix):
+        cloud = CloudArrays.from_numpy(
+            pts, view_points=cam, capacity=tdet.serve_capacity(len(pts)),
+            device="cuda")
+        cloud = tdet._prep_filter_voxel(cloud, tuple(spec["workspace"]),
+                                        spec["voxel_size"], True)
+        yield cloud.compact_host(tdet.serve_capacity(int(cloud.mask.sum())))
+
+
+def bucket_cloud(capacity):
+    """(points, mask) of the first pcd scene's filter input at a serve
+    bucket: its first ``capacity`` rows at 2048 and 8192, itself at
+    16384, and at 65536 six copies 1 m apart along x (the sort's first
+    key, so the cell order holds) padded with masked rows."""
+    cloud = next(pcd_filter_inputs([200]))
+    assert cloud.capacity == 16384
+    points, mask = cloud.points, cloud.mask
+    if capacity <= 16384:
+        return points[:capacity].contiguous(), mask[:capacity].contiguous()
+    live = points[mask]
+    shift = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    rows = torch.cat([live + i * shift for i in range(6)])
+    pts = torch.full((capacity, 3), 1.0e6, device="cuda")
+    pts[:len(rows)] = rows
+    keep = torch.arange(capacity, device="cuda") < len(rows)
+    return pts, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [2048, 8192, 16384, 65536])
+def test_outlier_knn_matches_emulation_on_card(capacity):
+    """The kernel's mean distances at the serve buckets against the plain
+    emulation of its arithmetic, bit for bit (at 65536 on 4096 rows drawn
+    at random), twice; one launch a call. Its probe, with and without
+    culling, gives the same bits; without culling it sweeps every (query,
+    group) pair it judges, and with culling at most half of them."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    needs_card()
+    points, mask = bucket_cloud(capacity)
+    before = _build.LAUNCHES["outlier_knn"]
+    got = nbr.outlier_knn(points, mask, 50)
+    again = nbr.outlier_knn(points, mask, 50)
+    assert _build.LAUNCHES["outlier_knn"] == before + 2
+    rows = None
+    if capacity > 16384:
+        gen = torch.Generator(device="cuda").manual_seed(capacity)
+        rows = torch.randperm(capacity, generator=gen, device="cuda")[:4096]
+    want = knn_emulation(points, mask, 50, rows)
+    sub = got if rows is None else got[rows]
+    off = int((sub != want).sum())
+    assert off == 0, f"{off} of {len(want)} means differ"
+    assert torch.equal(got, again)
+    culled, judged, swept, bound = nbr.outlier_knn_probe(points, mask, 50)
+    full, judged_full, swept_full, bound_full = nbr.outlier_knn_probe(
+        points, mask, 50, cull=False)
+    live = int(mask.sum())
+    assert judged_full == swept_full == live * -(-capacity // 32)
+    assert swept <= judged <= judged_full and 2 * swept < judged_full
+    assert bound == pytest.approx(bound_full, rel=1e-9)
+    assert torch.equal(got, culled) and torch.equal(got, full)
+    print(f"outlier_knn capacity {capacity}: {live} live; groups swept "
+          f"{swept} of {judged} judged, {judged_full} pairs "
+          f"({1 - swept / judged_full:.1%} culled); mean bound "
+          f"{bound:.3e} m^2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeds", [range(200, 216), range(300, 316),
+                                   range(400, 416)])
+def test_outlier_mask_matches_float64_on_card(seeds):
+    """The filter's kept mask on the card (the kernel, then the mean and
+    deviation) equals h100_bench's float64 StatisticalOutlierRemoval on
+    the same voxelized points, on the 16 pcd_stream scenes and on two
+    more sets of 16 scene seeds; prints the plain route's differences."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    from gpd_tpu_torch.ops import preprocess as pp
+    needs_card()
+    plain_off = 0
+    for i, cloud in enumerate(pcd_filter_inputs(seeds)):
+        points, mask = cloud.points, cloud.mask
+        keep = pp._outlier_mask(points, mask, 50, 1.0)
+        want = reference_keep(points, mask, 50)
+        assert not bool(keep[~mask].any())
+        assert torch.equal(keep[mask], want), \
+            (seeds[i], int((keep[mask] != want).sum()))
+        mean_d = nbr.outlier_knn_ref(points, mask, 50)
+        n = mask.sum()
+        mu = torch.where(mask, mean_d, 0.0).sum() / n
+        sd = torch.sqrt(torch.where(mask, (mean_d - mu) ** 2, 0.0).sum() / n)
+        plain_off += int(((mean_d <= mu + sd)[mask] != want).sum())
+    print(f"outlier mask, scene seeds {seeds[0]}-{seeds[-1]}: kernel equals "
+          f"float64 on all 16; the plain route differs at {plain_off} "
+          f"points")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["duplicates", "few_live", "masked_rows"])
+def test_outlier_knn_edge_cases_on_card(case):
+    """Duplicate points (equal distances at the list's edge), fewer than
+    mean_k + 1 live points, masked rows among the live ones: the kernel
+    against the emulation bit for bit, its kept mask against float64, 0
+    where masked; and a cloud with no live point, and none at all."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    from gpd_tpu_torch.ops import preprocess as pp
+    needs_card()
+    points, mask, mean_k = (t.cuda() if torch.is_tensor(t) else t
+                            for t in outlier_case(case))
+    got = nbr.outlier_knn(points, mask, mean_k)
+    assert torch.equal(got, knn_emulation(points, mask, mean_k))
+    assert bool((got[~mask] == 0).all())
+    keep = pp._outlier_mask(points, mask, mean_k, 1.0)
+    assert torch.equal(keep[mask], reference_keep(points, mask, mean_k))
+    assert not nbr.outlier_knn(points, torch.zeros_like(mask), mean_k).any()
+    assert nbr.outlier_knn(points[:0], mask[:0], mean_k).shape == (0,)
+    for k in (0, 1, 63):
+        assert torch.equal(nbr.outlier_knn(points, mask, k),
+                           knn_emulation(points, mask, k)), k
+
+
+@pytest.mark.cuda
+def test_outlier_knn_replays_as_called_on_card():
+    """A CUDA graph of the wrapper records one launch and replays the
+    eager call's means bit for bit; the replay calls no wrapper."""
+    from gpd_tpu_torch.ops import neighbors as nbr
+    needs_card()
+    points, mask = bucket_cloud(16384)
+    eager = nbr.outlier_knn(points, mask, 50)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nbr.outlier_knn(points, mask, 50)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.LAUNCHES["outlier_knn"]
+    with torch.cuda.graph(graph):
+        out = nbr.outlier_knn(points, mask, 50)
+    assert _build.LAUNCHES["outlier_knn"] == before + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert _build.LAUNCHES["outlier_knn"] == before + 1
